@@ -21,7 +21,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("fused_real_matvec",)
+KERNELS = ("fused_real_matvec", "fused_pair_matvec")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

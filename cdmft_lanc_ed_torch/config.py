@@ -2,7 +2,7 @@
 
 Copy of the JAX package's input layer, itself a re-implementation of the
 reference input layer
-(/root/reference/ED_INPUT_VARS.f90:103-234): every input variable of the
+(the reference's ED_INPUT_VARS.f90:103-234): every input variable of the
 reference solver is kept, with the same (lower-cased) name and the same
 default, parsed from the same ``NAME=value`` input-file format produced by
 SciFortran's SF_PARSE_INPUT.  Unlike the reference (mutable module globals)

@@ -1,15 +1,17 @@
 """Sector-sweep diagonalization driver.
 
-Port of the JAX package's ``diag.py`` (real path): loop over all
+Port of the JAX package's ``diag.py`` (dense-factor path): loop over all
 (N_up, N_dw) Fock sectors, solve each with the dense path (small dims) or
 the thick-restart Lanczos eigensolver, and keep the retained eigenstates in
-the capacity-constrained :class:`~.eigenspace.StateList`.  Same-bucket real
-sectors are solved as one batch (one device stream, shared restart
+the capacity-constrained :class:`~.eigenspace.StateList`.  Real sectors
+take the real kit, complex ones the complex pair kit.  Same-bucket sectors
+of one kind are solved as one batch (one device stream, shared restart
 schedule); the rest are solved one by one.  ``ed_precision="mixed"`` runs
-the f32 Krylov stage on the fused CUDA H·v and refines in f64.
+the f32 (complex64) Krylov stage on the fused CUDA H·v and refines in f64
+(complex128).
 
-Complex sector Hamiltonians and spin factors beyond the dense-factor limit
-(Ns >= 16) are later slices of the port and raise NotImplementedError.
+Spin factors beyond the dense-factor limit (Ns >= 16) are a later slice of
+the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,8 +30,6 @@ from .eigenspace import StateList
 from .ops import lanczos, sector_ham, split
 from .utils import fock
 
-_COMPLEX_TODO = ("complex sector Hamiltonians are not ported yet "
-                 "(ROADMAP Queue 1 item 6: complex path)")
 _LARGE_TODO = ("spin factors above the dense-factor limit (Ns >= 16) are "
                "not ported yet (ROADMAP Queue 1 item 7: large sectors)")
 
@@ -124,29 +124,41 @@ class DiagState:
 SectorBuilder = Callable[[int, int], sector_ham.SectorOperator]
 
 
-def _real_kit(op: sector_ham.SectorOperator, dtype, device):
-    """Real dense-factor kit of ``op``, or NotImplementedError naming the
-    slice that ports the missing kind."""
+def _kit(op: sector_ham.SectorOperator, dtype, device):
+    """(apply_fn, dev, is_real, dim_p, embed, extract): the real kit of a
+    real ``op``, else the complex pair kit; NotImplementedError for
+    factors beyond the dense-factor limit."""
     if max(op.dim_up, op.dim_dw) > split.DENSE_FACTOR_MAX:
         raise NotImplementedError(_LARGE_TODO)
     kit = split.build_real_padded(op, dtype=dtype, device=device)
-    if kit is None:
-        raise NotImplementedError(_COMPLEX_TODO)
-    return kit
+    if kit is not None:
+        return (split.apply_real_flat, kit[0], True) + tuple(kit[1:])
+    dev, _, dim_p, embed, extract = split.build_pair_padded(
+        op, dtype=dtype, device=device)
+    return split.apply_pair_flat, dev, False, dim_p, embed, extract
 
 
 def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
                    results: dict) -> None:
-    """One batched solve over same-bucket real sectors ``members``
-    [(isector, op, dim, neigen, nblock, nitermax)], chunked so that the
-    Krylov bases and operator stacks stay within a quarter of the
-    device memory."""
-    ddp, dup, nterms = key
+    """One batched solve over same-bucket sectors ``members``
+    [(isector, op, dim, neigen, nblock, nitermax)] of one kind (``key``'s
+    last entry: real or complex), chunked so that the Krylov bases and
+    operator stacks stay within a quarter of the device memory."""
+    ddp, dup, nterms, is_real = key
     dim_p = ddp * dup
-    op_bytes = (dim_p + (ddp * ddp + dup * dup)
+    planes = 1 if is_real else 2        # complex vectors and factors
+    op_bytes = (dim_p + planes * (ddp * ddp + dup * dup)
                 + nterms * (ddp * ddp + dup * dup)) * 8
-    member_bytes = (ncv_g + 1) * dim_p * 8 + op_bytes
+    member_bytes = (ncv_g + 1) * dim_p * 8 * planes + op_bytes
     bmax = max(2, int(budget_bytes(device, 0.25) / member_bytes))
+    if is_real:
+        stack, apply_b = split.stack_real_ops, split.apply_real_flat_batched
+        eigh, mixed = (lanczos.lanczos_eigh_real_batched,
+                       lanczos.lanczos_eigh_mixed_real_batched)
+    else:
+        stack, apply_b = split.stack_pair_ops, split.apply_pair_flat_batched
+        eigh, mixed = (lanczos.lanczos_eigh_split_batched,
+                       lanczos.lanczos_eigh_mixed_split_batched)
     for lo in range(0, len(members), bmax):
         chunk = members[lo:lo + bmax]
         if len(chunk) < 2:
@@ -155,36 +167,37 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
         neigen_g = max(m[3] for m in chunk)
         maxiter_g = max(m[5] for m in chunk) * ncv_g
         rng = np.random.default_rng(8527)
-        v0 = np.stack([split.embed_real(rng.normal(size=m[2]),
-                                        m[1].dim_dw, m[1].dim_up, ddp, dup)
-                       for m in chunk])
+        # start vectors drawn member by member, as the JAX package draws
+        # them (a complex member takes its real then its imaginary part)
+        v0 = np.stack([split.embed_real(
+            rng.normal(size=m[2]) if is_real
+            else rng.normal(size=m[2]) + 1j * rng.normal(size=m[2]),
+            m[1].dim_dw, m[1].dim_up, ddp, dup) for m in chunk])
         ops = [m[1] for m in chunk]
         if cfg.ed_precision == "mixed":
             def fb64(i, v0_row, _ops=ops):
                 # full-f64 polish at the caller's tolerance
-                dev_i = split.build_real_padded(_ops[i], device=device)[0]
-                return lanczos.lanczos_eigh_real(
-                    split.apply_real_flat, dim_p, neigen=neigen_g,
-                    ncv=ncv_g, maxiter=maxiter_g,
+                apply1, dev_i = _kit(_ops[i], torch.float64, device)[:2]
+                solve1 = (lanczos.lanczos_eigh_real if is_real
+                          else lanczos.lanczos_eigh_split)
+                return solve1(
+                    apply1, dim_p, neigen=neigen_g, ncv=ncv_g,
+                    maxiter=maxiter_g,
                     tol=max(cfg.lanc_tolerance, lanczos._f64_dot_floor()),
                     v0=v0_row, op=dev_i)
 
-            res_list = lanczos.lanczos_eigh_mixed_real_batched(
-                split.apply_real_flat_batched, split.apply_real_flat_batched,
-                len(chunk), dim_p, neigen=neigen_g, ncv=ncv_g,
-                maxiter=maxiter_g, tol=cfg.lanc_tolerance, v0=v0,
-                op32=split.stack_real_ops(ops, (ddp, dup),
-                                          dtype=torch.float32,
-                                          device=device),
-                op64=lambda _o=ops: split.stack_real_ops(
-                    _o, (ddp, dup), device=device),
+            res_list = mixed(
+                apply_b, apply_b, len(chunk), dim_p, neigen=neigen_g,
+                ncv=ncv_g, maxiter=maxiter_g, tol=cfg.lanc_tolerance, v0=v0,
+                op32=stack(ops, (ddp, dup), dtype=torch.float32,
+                           device=device),
+                op64=lambda _o=ops: stack(_o, (ddp, dup), device=device),
                 fallback64=fb64, vec_rtol=cfg.ed_mixed_vec_tol)
         else:
-            res_list = lanczos.lanczos_eigh_real_batched(
-                split.apply_real_flat_batched, len(chunk), dim_p,
-                neigen=neigen_g, ncv=ncv_g, maxiter=maxiter_g,
-                tol=cfg.lanc_tolerance, v0=v0,
-                op=split.stack_real_ops(ops, (ddp, dup), device=device))
+            res_list = eigh(
+                apply_b, len(chunk), dim_p, neigen=neigen_g, ncv=ncv_g,
+                maxiter=maxiter_g, tol=cfg.lanc_tolerance, v0=v0,
+                op=stack(ops, (ddp, dup), device=device))
         for m, res in zip(chunk, res_list):
             isector, op, dim, neigen = m[0], m[1], m[2], m[3]
             if not res.converged:
@@ -195,28 +208,33 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
             vecs = split.extract_real(np.asarray(res.eigenvectors)[:neigen],
                                       op.dim_dw, op.dim_up, ddp, dup)
             results[isector] = (np.asarray(res.eigenvalues)[:neigen], vecs)
-        verbose(f"batched {len(chunk)} real sectors (bucket {ddp}x{dup}, "
-                f"ncv={ncv_g}) [{time.time() - t0:6.2f}s]")
+        verbose(f"batched {len(chunk)} {'real' if is_real else 'complex'} "
+                f"sectors (bucket {ddp}x{dup}, ncv={ncv_g}) "
+                f"[{time.time() - t0:6.2f}s]")
 
 
 def _solve_serial(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
                   device):
     rng = np.random.default_rng(8527)
-    dev, dim_p, embed, extract = _real_kit(op, torch.float64, device)
-    v0 = embed(rng.normal(size=dim))
-    if cfg.ed_precision == "mixed":
-        dev32 = split.build_real_padded(op, dtype=torch.float32,
-                                        device=device)[0]
-        res = lanczos.lanczos_eigh_mixed_real(
-            split.apply_real_flat, split.apply_real_flat, dim_p,
-            neigen=neigen, ncv=nblock, maxiter=nitermax * nblock,
-            tol=cfg.lanc_tolerance, v0=v0, op32=dev32, op64=dev,
-            vec_rtol=cfg.ed_mixed_vec_tol)
+    apply1, dev, is_real, dim_p, embed, extract = _kit(op, torch.float64,
+                                                       device)
+    if is_real:
+        v0 = embed(rng.normal(size=dim))
+        solve1, mixed = lanczos.lanczos_eigh_real, \
+            lanczos.lanczos_eigh_mixed_real
     else:
-        res = lanczos.lanczos_eigh_real(
-            split.apply_real_flat, dim_p, neigen=neigen, ncv=nblock,
-            maxiter=nitermax * nblock, tol=cfg.lanc_tolerance, v0=v0,
-            op=dev)
+        v0 = embed(rng.normal(size=dim) + 1j * rng.normal(size=dim))
+        solve1, mixed = lanczos.lanczos_eigh_split, lanczos.lanczos_eigh_mixed
+    if cfg.ed_precision == "mixed":
+        dev32 = _kit(op, torch.float32, device)[1]
+        res = mixed(apply1, apply1, dim_p, neigen=neigen, ncv=nblock,
+                    maxiter=nitermax * nblock, tol=cfg.lanc_tolerance,
+                    v0=v0, op32=dev32, op64=dev,
+                    vec_rtol=cfg.ed_mixed_vec_tol)
+    else:
+        res = solve1(apply1, dim_p, neigen=neigen, ncv=nblock,
+                     maxiter=nitermax * nblock, tol=cfg.lanc_tolerance,
+                     v0=v0, op=dev)
     return lanczos.EighResult(res.eigenvalues, extract(res.eigenvectors),
                               res.iterations, res.converged)
 
@@ -278,8 +296,9 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
                 state.state_list.insert(enemin, eig_basis[i], isector, ns,
                                         twin=tflag)
 
-    # --- sector-parallel batched dispatch: same-bucket real Lanczos
-    # sectors run through one batched thick-restart stream ---
+    # --- sector-parallel batched dispatch: same-bucket Lanczos sectors of
+    # one kind (real or complex) run through one batched thick-restart
+    # stream ---
     batched_results = {}
     groups = {}
     for isector in active:
@@ -290,10 +309,8 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
         op = build(nup, ndw)
         if max(op.dim_up, op.dim_dw) > split.DENSE_FACTOR_MAX:
             raise NotImplementedError(_LARGE_TODO)
-        if not split.op_is_real(op):
-            raise NotImplementedError(_COMPLEX_TODO)
         key = (split._bucket(op.dim_dw), split._bucket(op.dim_up),
-               len(op.nd_terms))
+               len(op.nd_terms), split.op_is_real(op))
         groups.setdefault(key, []).append(
             (isector, op, dim, neigen, nblock, nitermax))
     for key, members in groups.items():

@@ -1,25 +1,27 @@
 """Green's functions: batched GF-Lanczos, pole/weight spectra, self-energy.
 
-Port of the real 2-channel path of the JAX package's ``gf.py`` (continued
+Port of the dense-factor path of the JAX package's ``gf.py`` (continued
 fraction via Lanczos tridiagonalisation in the particle-added/removed
-sector, ED_GF_NORMAL.f90).  A real Hamiltonian with real retained
-eigenvectors has G_ij = G_ji exactly, so the symmetric 2-channel scheme
-holds and every injection is one real plane:
+sector, ED_GF_NORMAL.f90):
 
 * the base excitations ``c^+_a|psi>`` / ``c_a|psi>`` are built once per
-  (state, spin) as index gathers; pair injections are sums of them;
-* every injection that targets the same (N_up, N_dw) sector runs in one
-  batched tridiagonalisation on the device (``ed_gf_precision``: f64 by
-  default, f32 on the fused CUDA H·v);
+  (state, spin) as index gathers; pair injections are combinations of
+  them;
+* a real Hamiltonian with real retained eigenvectors has G_ij = G_ji
+  exactly: the symmetric 2-channel scheme (injections a, a+b), every
+  injection one real plane on the real kit;
+* otherwise the 4-channel scheme adds the (a ± i b) injections with
+  prefactor -i, and complex injections run on the complex pair kit;
+* every injection that targets the same (N_up, N_dw) sector and kind runs
+  in one batched tridiagonalisation on the device (``ed_gf_precision``:
+  f64/complex128 by default, f32/complex64 on the fused CUDA H·v);
 * Sigma = G0^{-1} - G^{-1} is one batched complex128 inversion over all
   frequencies on the device.
-
-The 4-channel complex scheme is a later slice (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,13 +29,10 @@ import torch
 from .bath import BathBasis, DmftBath, basis_lso_of, invg0_bath_lso
 from .config import EDConfig
 from .device import budget_bytes
-from .diag import DiagState, SectorBuilder, _real_kit
+from .diag import DiagState, SectorBuilder, _kit
 from .ops import lanczos, split
 from .utils import fock
 from .utils.reshape import lso2nnn, nnn2lso
-
-_COMPLEX_GF_TODO = ("the 4-channel complex GF scheme is not ported yet "
-                    "(ROADMAP Queue 1 item 6: complex path)")
 
 
 # ---------------------------------------------------------------------------
@@ -60,11 +59,16 @@ class GFChannel:
 
 class GFSpectrum:
     """impGmatrix equivalent: per component (ilat,jlat,ispin,iorb,jorb) a
-    list over states of lists of channels (2-channel scheme)."""
+    list over states of lists of channels.
+
+    ``symmetric`` records which off-diagonal scheme built the spectrum
+    (2-channel symmetric or 4-channel), so that later evaluations
+    recombine it the same way; None means "use the config flag"."""
 
     def __init__(self):
         self.data: Dict[Tuple[int, int, int, int, int],
                         List[List[GFChannel]]] = {}
+        self.symmetric: Optional[bool] = None
 
     def add_channel(self, key, istate: int, chan: GFChannel):
         comp = self.data.setdefault(key, [])
@@ -199,26 +203,27 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
                     force_symmetric: bool = False
                     ) -> Tuple[GFSpectrum, float]:
     """Fill the pole/weight spectrum for all (site,orb,spin) components
-    (build_gf_normal, ED_GF_NORMAL.f90:38-104) with the 2-channel scheme:
-    Nimp diagonal injections plus the (a+b) pairs per (state, spin,
-    create), all real."""
-    if not (cfg.ed_gf_symmetric or force_symmetric):
-        raise NotImplementedError(_COMPLEX_GF_TODO)
+    (build_gf_normal, ED_GF_NORMAL.f90:38-104): Nimp diagonal injections
+    plus the (a+b) pairs per (state, spin, create), and the (a ± i b)
+    pairs unless ``cfg.ed_gf_symmetric`` or ``force_symmetric`` selects
+    the 2-channel scheme."""
     ns, nimp, norb = cfg.ns, cfg.nimp, cfg.norb
     spec = GFSpectrum()
     egs = state.state_list.emin
     zeta = state.zeta_function
     max_exc = -np.inf
-    # ed_gf_precision="single": f32 chains on the fused CUDA kernel; pole
-    # weights and the continued-fraction evaluation stay f64
+    chan4 = not (cfg.ed_gf_symmetric or force_symmetric)
+    spec.symmetric = not chan4
+    # ed_gf_precision="single": f32/complex64 chains on the fused CUDA
+    # kernels; pole weights and the continued-fraction evaluation stay f64
     gf_single = cfg.ed_gf_precision == "single"
     gf_dtype = torch.float32 if gf_single else torch.float64
     beta_floor = 1e-6 if gf_single else 1e-16
 
-    # --- all injection batches, grouped by target sector: every injection
-    # that targets the same (jnup, jndw) sector, from any retained state,
-    # runs in ONE batched tridiagonalisation ---
-    jobs: Dict[Tuple[int, int], list] = {}
+    # --- all injection batches, grouped by target sector and kind: every
+    # injection that targets the same (jnup, jndw) sector, from any
+    # retained state, runs in ONE batched tridiagonalisation ---
+    jobs: Dict[Tuple[int, int, bool], list] = {}
     for istate, st in enumerate(state.state_list):
         nup, ndw = fock.get_quantum_numbers(st.isector, ns)
         ei = st.energy
@@ -242,29 +247,48 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
                         vecs.append(base[a] + base[b])
                         meta.append(((a, b), 1.0 + 0j, istate, ei, isign,
                                      ispin))
+                        if chan4:
+                            # reference: add c^+_a + i c^+_b ;
+                            # del c_a - i c_b (ED_GF_NORMAL.f90:584-660)
+                            ph = 1j if create else -1j
+                            vecs.append(base[a] + ph * base[b])
+                            meta.append(((a, b), -1j, istate, ei, isign,
+                                         ispin))
                 stacked = np.stack(vecs)
-                if np.iscomplexobj(stacked):
-                    if np.abs(stacked.imag).max() > 0.0:
-                        raise NotImplementedError(_COMPLEX_GF_TODO)
-                    stacked = stacked.real
-                jobs.setdefault((jnup, jndw), []).append((stacked, meta))
+                is_real = not (np.iscomplexobj(stacked)
+                               and np.abs(stacked.imag).max() > 0.0)
+                if is_real:
+                    stacked = np.real(stacked)
+                jobs.setdefault((jnup, jndw, is_real), []).append(
+                    (stacked, meta))
 
     # --- one batched tridiagonalisation per target-sector group ---------
-    for (jnup, jndw), entries in jobs.items():
+    for (jnup, jndw, is_real), entries in jobs.items():
         batch = np.concatenate([e[0] for e in entries])
         meta = [m for e in entries for m in e[1]]
         jdim = batch.shape[1]
+        planes = 1 if is_real else 2
         rows_max = max(nimp, int(budget_bytes(device, 0.25)
-                                 / max(jdim * 8 * 3, 1)))
+                                 / max(jdim * 8 * 3 * planes, 1)))
         nlanc = min(jdim, cfg.lanc_ngfiter)
-        dev, _dim_p, embed, _extract = _real_kit(build(jnup, jndw),
-                                                 gf_dtype, device)
+        op = build(jnup, jndw)
+        apply1, dev, real_op, _dim_p, embed, _extract = _kit(op, gf_dtype,
+                                                             device)
+        # real injections on a real operator stay one real plane; all
+        # others run complex on the pair kit (a real operator's with zero
+        # imaginary parts)
+        if real_op and not is_real:
+            apply1 = split.apply_pair_flat
+            dev = split.build_pair_padded(op, dtype=gf_dtype,
+                                          device=device)[0]
+        tridiag = (lanczos.lanczos_tridiag_batched_real
+                   if real_op and is_real
+                   else lanczos.lanczos_tridiag_batched_split)
         for lo in range(0, len(meta), rows_max):
             sub = batch[lo:lo + rows_max]
             sub_meta = meta[lo:lo + rows_max]
-            alphas, betas, norms = lanczos.lanczos_tridiag_batched_real(
-                split.apply_real_flat, embed(sub), nlanc, op=dev,
-                dtype=gf_dtype)
+            alphas, betas, norms = tridiag(apply1, embed(sub), nlanc,
+                                           op=dev, dtype=gf_dtype)
             for k, ((a, b), vfac, istate, ei, isign, ispin) in \
                     enumerate(sub_meta):
                 ch = _chain_to_poles(alphas[k], betas[k],
@@ -286,12 +310,16 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
 def evaluate_gf_nnn(spec: GFSpectrum, cfg: EDConfig,
                     z: np.ndarray) -> np.ndarray:
     """Rebuild the full cluster GF at arbitrary complex frequencies from the
-    stored pole/weight spectrum, including the 2-channel off-diagonal
-    recombination G_ij = (G_(i+j) - G_ii - G_jj) / 2 (ed_gf_cluster,
-    ED_IO/gf_cluster.f90:1-88)."""
+    stored pole/weight spectrum, including the off-diagonal recombination
+    G_ij = (G_(i+j) - fac G_ii - fac G_jj) / 2 with fac 1 (2-channel) or
+    1 - i (4-channel, whose (a ± i b) channels carry the -i prefactor)
+    (ed_gf_cluster, ED_IO/gf_cluster.f90:1-88)."""
     nlat, nspin, norb = cfg.nlat, cfg.nspin, cfg.norb
     out = np.zeros((nlat, nlat, nspin, nspin, norb, norb, len(z)),
                    np.complex128)
+    sym = spec.symmetric if spec.symmetric is not None \
+        else cfg.ed_gf_symmetric
+    fac = 1.0 - (0.0 if sym else 1j)
     for ispin in range(nspin):
         for ilat in range(nlat):
             for iorb in range(norb):
@@ -307,7 +335,7 @@ def evaluate_gf_nnn(spec: GFSpectrum, cfg: EDConfig,
                         gii = out[ilat, ilat, ispin, ispin, iorb, iorb]
                         gjj = out[jlat, jlat, ispin, ispin, jorb, jorb]
                         out[ilat, jlat, ispin, ispin, iorb, jorb] = \
-                            0.5 * (g - gii - gjj)
+                            0.5 * (g - fac * gii - fac * gjj)
     return out
 
 
@@ -324,7 +352,8 @@ def build_gf_and_sigma(cfg: EDConfig, hb: BathBasis, bath: DmftBath,
     zreal = wr + 1j * cfg.eps
 
     # real H (Hloc + bath basis; V, U, Jx/Jp are real by construction)
-    # and real retained eigenvectors => G_ij = G_ji: 2-channel scheme
+    # and real retained eigenvectors => G_ij = G_ji: the 2-channel scheme;
+    # anything complex takes the 4-channel scheme
     force_sym = False
     if not cfg.ed_gf_symmetric:
         real_h = (np.abs(np.asarray(imp_hloc).imag).max(initial=0) == 0

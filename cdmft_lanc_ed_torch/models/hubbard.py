@@ -2,7 +2,7 @@
 of the JAX package's ``models/hubbard.py``).
 
 Replaces the Hk/Hloc builder functions embedded in the reference drivers
-(/root/reference/drivers/cdn_hm_2dsquare.f90:221-295,
+(the reference's drivers/cdn_hm_2dsquare.f90:221-295,
  drivers/cdn_hm_1dchain.f90): the lattice is tiled by an (Nx x Ny) cluster
 supercell; Hloc is the intra-cluster hopping, Hk adds the inter-cluster
 terms with Bloch phases e^{i k . R} over the superlattice Brillouin zone.

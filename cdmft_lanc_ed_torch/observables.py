@@ -1,7 +1,7 @@
 """Observables: thermal averages, energies, density matrices.
 
 Port of the host path of the JAX package's ``observables.py`` (itself a
-re-implementation of /root/reference/ED_OBSERVABLES.f90).  The retained
+re-implementation of the reference's ED_OBSERVABLES.f90).  The retained
 eigenvectors of the dense-factor kit live on the host, so these are host
 numpy reductions, as in the JAX package.  All
 quantities are **vectorised reductions** over the sector basis instead of the

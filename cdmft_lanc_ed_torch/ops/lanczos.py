@@ -1,16 +1,24 @@
-"""Eigensolvers of the real path: thick-restart Lanczos (ARPACK
-replacement), the mixed f32-Krylov + f64 Rayleigh-Ritz scheme, and the
-batched tridiagonalisation of the GF resolvent.
+"""Eigensolvers: thick-restart Lanczos (ARPACK replacement), the mixed
+f32-Krylov + f64 Rayleigh-Ritz scheme, and the batched tridiagonalisation
+of the GF resolvent, for real symmetric and complex Hermitian sectors.
 
-Port of the real half of the JAX package's ``ops/lanczos.py``.  Operators
-are passed as a pure ``apply_fn(op, x)`` with ``op`` a
-:class:`~.split.DenseRealOp` whose tensors fix the device.  Each
+Port of the JAX package's ``ops/lanczos.py``.  Operators are passed as a
+pure ``apply_fn(op, x)`` with ``op`` a :class:`~.split.DenseRealOp` or
+:class:`~.split.DenseComplexOp` whose tensors fix the device.  Each
 thick-restart round expands the Krylov basis on the device in a Python
 loop (CGS2 full reorthogonalisation) and copies one small block of
-projections to the host, where the ncv x ncv Ritz problem is solved; the restart rotation
-runs on the device at the start of the next round.  There is one restart
-form: the JAX package's fused-vs-split pair existed for XLA buffer
-donation.
+projections to the host, where the ncv x ncv Ritz problem is solved; the
+restart rotation runs on the device at the start of the next round.
+There is one restart form: the JAX package's fused-vs-split pair existed
+for XLA buffer donation.
+
+Every routine is generic over the vector dtype: a real basis stays real
+(float32/float64), a complex one is complex64/complex128 (the JAX
+package's re/im plane pairs).  Projections take ``q.conj()``, the
+projected matrix is Hermitian, and a Lanczos alpha is the real part of
+<v|Hv>.  The real names (``lanczos_eigh_real``, ...) and the JAX
+package's split-plane names (``lanczos_eigh_split``, ...) are the entry
+points of the two kinds of sector.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import numpy as np
 import torch
 
 from ..device import budget_bytes
+from .split import complex_dtype, real_dtype
 
 
 class EighResult(NamedTuple):
@@ -37,15 +46,37 @@ def _eps(dtype: torch.dtype) -> float:
     return float(torch.finfo(dtype).eps)
 
 
+def _hi(dtype: torch.dtype) -> torch.dtype:
+    """The f64 dtype of a basis dtype: float64 or complex128."""
+    return torch.complex128 if dtype.is_complex else torch.float64
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _complex_v0(v0, shape, seed: int) -> np.ndarray:
+    """Complex start vectors: ``v0`` as given, else re + i*im from
+    ``default_rng(seed)`` drawn as the JAX package draws them (the serial
+    solver's [2, dim] planes, the batched solver's two [B, dim] draws)."""
+    if v0 is not None:
+        return np.asarray(v0, np.complex128)
+    rng = np.random.default_rng(seed)
+    if len(shape) == 1:
+        re, im = rng.normal(size=(2,) + tuple(shape))
+        return re + 1j * im
+    re = rng.normal(size=shape)
+    return re + 1j * rng.normal(size=shape)
+
+
 # ---------------------------------------------------------------------------
 # plain Lanczos tridiagonalisation (no reorthogonalisation): GF resolvent
 # ---------------------------------------------------------------------------
 
-def lanczos_tridiag_batched_real(apply_fn, v0: np.ndarray, niter: int,
-                                 op, dtype=torch.float64):
-    """Batched tridiagonalisation for a REAL symmetric operator shared by
-    B REAL start vectors ``v0`` [B, dim] (host array).  Returns host
-    (alphas [B, niter], betas [B, niter-1], norms [B])."""
+def _tridiag(apply_fn, v0: np.ndarray, niter: int, op, dtype):
+    """Plain Lanczos chains of one operator from B start vectors ``v0``
+    [B, dim] (host) in ``dtype``.  Returns host (alphas [B, niter],
+    betas [B, niter-1], norms [B])."""
     device = _device_of(op)
     v0 = np.asarray(v0)
     norms0 = np.linalg.norm(v0, axis=1)
@@ -53,13 +84,14 @@ def lanczos_tridiag_batched_real(apply_fn, v0: np.ndarray, niter: int,
     v = torch.as_tensor(np.ascontiguousarray(v0 / scale[:, None])).to(
         device=device, dtype=dtype)
     nb = v.shape[0]
+    rdtype = real_dtype(dtype)
     p = torch.zeros_like(v)
-    beta_prev = torch.zeros(nb, dtype=dtype, device=device)
-    alphas = torch.empty(niter, nb, dtype=dtype, device=device)
-    betas = torch.empty(niter, nb, dtype=dtype, device=device)
+    beta_prev = torch.zeros(nb, dtype=rdtype, device=device)
+    alphas = torch.empty(niter, nb, dtype=rdtype, device=device)
+    betas = torch.empty(niter, nb, dtype=rdtype, device=device)
     for it in range(niter):
         w = apply_fn(op, v)
-        alpha = (v * w).sum(dim=1)
+        alpha = (v.conj() * w).sum(dim=1).real          # Re <v|Hv>
         w = w - alpha[:, None] * v - beta_prev[:, None] * p
         beta = torch.linalg.vector_norm(w, dim=1)
         good = (beta > 1e-200)[:, None]
@@ -70,6 +102,24 @@ def lanczos_tridiag_batched_real(apply_fn, v0: np.ndarray, niter: int,
         betas[it] = beta
     return (alphas.T.cpu().numpy(), betas.T.cpu().numpy()[:, : niter - 1],
             norms0)
+
+
+def lanczos_tridiag_batched_real(apply_fn, v0: np.ndarray, niter: int,
+                                 op, dtype=torch.float64):
+    """Batched tridiagonalisation for a REAL symmetric operator shared by
+    B REAL start vectors ``v0`` [B, dim] (host array).  Returns host
+    (alphas [B, niter], betas [B, niter-1], norms [B])."""
+    return _tridiag(apply_fn, np.real(np.asarray(v0)), niter, op, dtype)
+
+
+def lanczos_tridiag_batched_split(apply_fn, v0: np.ndarray, niter: int,
+                                  op, dtype=torch.complex128):
+    """Batched tridiagonalisation for a complex Hermitian operator shared
+    by B start vectors ``v0`` [B, dim] (host, real or complex), in
+    complex128 or (``dtype`` complex64 / float32) on the complex kernel.
+    Returns the host arrays of :func:`lanczos_tridiag_batched_real`."""
+    return _tridiag(apply_fn, np.asarray(v0, np.complex128), niter, op,
+                    complex_dtype(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -151,13 +201,15 @@ def _expand(apply_fn, op, b: torch.Tensor, k: int):
     nb, ncv1, _ = b.shape
     ncv = ncv1 - 1
     cs = torch.zeros(ncv, nb, ncv, dtype=b.dtype, device=b.device)
-    betas = torch.zeros(ncv, nb, dtype=b.dtype, device=b.device)
+    betas = torch.zeros(ncv, nb, dtype=real_dtype(b.dtype),
+                        device=b.device)
     for j in range(k, ncv):
         w = apply_fn(op, b[:, j])                          # [B, dim]
         q = b[:, : j + 1]
-        c1 = torch.bmm(q, w.unsqueeze(2))                  # [B, j+1, 1]
+        qh = q.conj()
+        c1 = torch.bmm(qh, w.unsqueeze(2))                 # <q|w> [B, j+1, 1]
         w = w - torch.bmm(c1.transpose(1, 2), q).squeeze(1)
-        c2 = torch.bmm(q, w.unsqueeze(2))
+        c2 = torch.bmm(qh, w.unsqueeze(2))
         w = w - torch.bmm(c2.transpose(1, 2), q).squeeze(1)
         beta = torch.linalg.vector_norm(w, dim=1)
         b[:, j + 1] = w / beta.clamp_min(1e-30)[:, None]
@@ -175,7 +227,8 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
     nb, dim = v0.shape
     basis = torch.zeros(nb, ncv + 1, dim, dtype=dtype, device=device)
     basis[:, 0] = torch.as_tensor(v0).to(device=device, dtype=dtype)
-    t_proj = np.zeros((nb, ncv, ncv))
+    t_proj = np.zeros((nb, ncv, ncv),
+                      np.complex128 if dtype.is_complex else np.float64)
     k = 0
     nmv = 0
     stall = _StallGuard()
@@ -186,7 +239,7 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
         betas_np = betas_d.cpu().numpy()            # [ncv, B]
         for j in range(k, ncv):
             t_proj[:, : j + 1, j] = cs[j][:, : j + 1]
-            t_proj[:, j, : j + 1] = cs[j][:, : j + 1]
+            t_proj[:, j, : j + 1] = cs[j][:, : j + 1].conj()
             if j + 1 < ncv:
                 t_proj[:, j + 1, j] = betas_np[j]
                 t_proj[:, j, j + 1] = betas_np[j]
@@ -210,20 +263,59 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
         t_proj[:] = 0.0
         idx = np.arange(k)
         t_proj[:, idx, idx] = theta[:, :k]
-        b_row = last_beta[:, None] * s[:, -1, :k]
+        b_row = last_beta[:, None] * s[:, -1, :k].conj()
         t_proj[:, k, :k] = b_row
-        t_proj[:, :k, k] = b_row
+        t_proj[:, :k, k] = b_row.conj()
 
 
 def _ritz_vectors(basis: torch.Tensor, s: np.ndarray, neigen: int
                   ) -> torch.Tensor:
-    """Normalised f64 Ritz vectors [B, neigen, dim] on the device."""
+    """Normalised f64 (float64 or complex128) Ritz vectors
+    [B, neigen, dim] on the device."""
     ncv = s.shape[1]
+    hi = _hi(basis.dtype)
     sj = torch.as_tensor(np.ascontiguousarray(
-        s[:, :, :neigen].transpose(0, 2, 1))).to(basis.device)
-    vecs = torch.bmm(sj, basis[:, :ncv].to(torch.float64))
+        s[:, :, :neigen].transpose(0, 2, 1))).to(basis.device, hi)
+    vecs = torch.bmm(sj, basis[:, :ncv].to(hi))
     nrm = torch.linalg.vector_norm(vecs, dim=2, keepdim=True)
     return vecs / nrm.clamp_min(1e-300)
+
+
+def _eigh(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
+          maxiter: int, tol: float, dtype, device_vectors: bool):
+    """Thick-restart solve of B = len(v0) operators (one batched matvec
+    [B, dim] -> [B, dim]) from normalised host start rows ``v0`` [B, dim].
+    Returns B EighResults."""
+    b, dim = v0.shape
+    neigen = min(neigen, dim)
+    ncv = int(min(max(ncv, neigen + 2), dim))
+    eps = _eps(dtype)
+    tol = max(tol, eps)
+    theta, s, conv, rel, nmv, basis = _thick_restart(
+        apply_fn, op, v0, neigen, ncv, maxiter, tol, dtype, _device_of(op))
+    vecs = _ritz_vectors(basis, s, neigen)
+    if not device_vectors:
+        vecs = vecs.cpu().numpy()
+    return [EighResult(theta[i, :neigen].copy(), vecs[i], nmv,
+                       _conv_ok(conv[i:i + 1], rel[i], eps, dim))
+            for i in range(b)]
+
+
+def _one_member(apply_fn):
+    """The single-sector operator as a one-member batch: [1, dim] rows."""
+    def apply_b(o, x):
+        return apply_fn(o, x[0])[None]
+    return apply_b
+
+
+def _unit(v0: np.ndarray) -> np.ndarray:
+    """One start vector as a normalised one-member batch [1, dim]."""
+    return (v0 / np.linalg.norm(v0))[None]
+
+
+def _unit_rows(v0: np.ndarray) -> np.ndarray:
+    """Start rows [B, dim], each normalised."""
+    return v0 / np.linalg.norm(v0, axis=1, keepdims=True)
 
 
 def lanczos_eigh_real(apply_fn, dim: int, neigen: int, ncv: int,
@@ -236,26 +328,25 @@ def lanczos_eigh_real(apply_fn, dim: int, neigen: int, ncv: int,
     torch.float32`` runs basis, matvec and CGS2 in f32 (the Krylov stage
     of the mixed scheme).  Eigenvectors come back as host float64 arrays
     [neigen, dim], or as a device tensor with ``device_vectors``."""
-    neigen = min(neigen, dim)
-    ncv = int(min(max(ncv, neigen + 2), dim))
-    eps = _eps(dtype)
-    tol = max(tol, eps)
     if v0 is None:
         v0 = np.random.default_rng(seed).normal(size=dim)
-    v0 = np.real(np.asarray(v0))
-    v0 = v0 / np.linalg.norm(v0)
+    return _eigh(_one_member(apply_fn), op, _unit(np.real(np.asarray(v0))),
+                 neigen, ncv, maxiter, tol, dtype, device_vectors)[0]
 
-    def apply_b(o, x):              # [1, dim] rows of the one-member batch
-        return apply_fn(o, x[0])[None]
 
-    theta, s, conv, rel, nmv, basis = _thick_restart(
-        apply_b, op, v0[None], neigen, ncv, maxiter, tol, dtype,
-        _device_of(op))
-    vecs = _ritz_vectors(basis, s, neigen)[0]
-    if not device_vectors:
-        vecs = vecs.cpu().numpy()
-    return EighResult(theta[0, :neigen].copy(), vecs, nmv,
-                      _conv_ok(conv, rel[0], eps, dim))
+def lanczos_eigh_split(apply_fn, dim: int, neigen: int, ncv: int,
+                       maxiter: int = 512, tol: float = 1e-14,
+                       v0: Optional[np.ndarray] = None, seed: int = 8527,
+                       dtype=torch.complex128, op=None,
+                       device_vectors: bool = False) -> EighResult:
+    """Thick-restart Lanczos for a complex Hermitian operator (the JAX
+    package's split-plane solver on complex tensors).  ``dtype``
+    complex64 (or float32) runs the Krylov stage of the mixed scheme on
+    the complex kernel.  Eigenvectors come back as host complex128 arrays
+    [neigen, dim], or as a device tensor with ``device_vectors``."""
+    return _eigh(_one_member(apply_fn), op,
+                 _unit(_complex_v0(v0, (dim,), seed)), neigen, ncv, maxiter,
+                 tol, complex_dtype(dtype), device_vectors)[0]
 
 
 def lanczos_eigh_real_batched(apply_fn, nbatch: int, dim: int,
@@ -269,23 +360,25 @@ def lanczos_eigh_real_batched(apply_fn, nbatch: int, dim: int,
     symmetric operators (one batched matvec [B, dim] -> [B, dim]) solved
     in one device stream with a shared restart schedule; the sweep stops
     when every member has converged.  Returns ``nbatch`` EighResults."""
-    b = nbatch
-    neigen = min(neigen, dim)
-    ncv = int(min(max(ncv, neigen + 2), dim))
-    eps = _eps(dtype)
-    tol = max(tol, eps)
     if v0 is None:
-        v0 = np.random.default_rng(seed).normal(size=(b, dim))
-    v0 = np.real(np.asarray(v0))
-    v0 = v0 / np.linalg.norm(v0, axis=1, keepdims=True)
-    theta, s, conv, rel, nmv, basis = _thick_restart(
-        apply_fn, op, v0, neigen, ncv, maxiter, tol, dtype, _device_of(op))
-    vecs = _ritz_vectors(basis, s, neigen)
-    if not device_vectors:
-        vecs = vecs.cpu().numpy()
-    return [EighResult(theta[i, :neigen].copy(), vecs[i], nmv,
-                       _conv_ok(conv[i:i + 1], rel[i], eps, dim))
-            for i in range(b)]
+        v0 = np.random.default_rng(seed).normal(size=(nbatch, dim))
+    return _eigh(apply_fn, op, _unit_rows(np.real(np.asarray(v0))), neigen,
+                 ncv, maxiter, tol, dtype, device_vectors)
+
+
+def lanczos_eigh_split_batched(apply_fn, nbatch: int, dim: int,
+                               neigen: int, ncv: int, maxiter: int = 512,
+                               tol: float = 1e-14,
+                               v0: Optional[np.ndarray] = None,
+                               seed: int = 8527, op=None,
+                               dtype=torch.complex128,
+                               device_vectors: bool = False):
+    """Batched thick-restart Lanczos over ``nbatch`` complex Hermitian
+    sectors: the complex twin of :func:`lanczos_eigh_real_batched`, with
+    complex eigenvector rows."""
+    return _eigh(apply_fn, op,
+                 _unit_rows(_complex_v0(v0, (nbatch, dim), seed)), neigen,
+                 ncv, maxiter, tol, complex_dtype(dtype), device_vectors)
 
 
 # ---------------------------------------------------------------------------
@@ -296,9 +389,11 @@ def _orth_expand_block(qi: torch.Tensor, block: torch.Tensor, rng
                        ) -> torch.Tensor:
     """Orthonormalise ``block`` [dim, m] against orthonormal ``qi``
     [dim, k] (CGS2 + QR).  Near-dependent columns are replaced by random
-    directions orthogonalised the same way."""
+    directions (complex ones for a complex basis) orthogonalised the same
+    way."""
+    qh = qi.conj().T
     for _ in range(2):
-        block = block - qi @ (qi.T @ block)
+        block = block - qi @ (qh @ block)
     qb, rr = torch.linalg.qr(block)
     d = torch.diagonal(rr).abs().cpu().numpy()
     scale = d.max() if d.size else 0.0
@@ -307,32 +402,35 @@ def _orth_expand_block(qi: torch.Tensor, block: torch.Tensor, rng
         n = qi.shape[0]
         for j in np.nonzero(bad)[0]:
             v = rng.normal(size=n)
+            if qb.dtype.is_complex:
+                v = v + 1j * rng.normal(size=n)
             qb[:, j] = torch.as_tensor(v / np.linalg.norm(v)).to(qb)
         for _ in range(2):
-            qb = qb - qi @ (qi.T @ qb)
+            qb = qb - qi @ (qh @ qb)
         qb, _ = torch.linalg.qr(qb)
     return qb
 
 
-def rayleigh_refine_real(matvec_real64, vecs: torch.Tensor, neigen: int,
+def rayleigh_refine_real(matvec64, vecs: torch.Tensor, neigen: int,
                          rtol=None, max_expand: int = 2):
     """Rayleigh-Ritz on the span of the device rows ``vecs`` [k, dim],
     expanded with the orthonormalised residual block of the wanted pairs
     until their residuals meet ``rtol*max(|theta|,1)`` or ``max_expand``
-    rounds.  ``matvec_real64`` maps rows [m, dim] -> [m, dim].  Returns
-    host theta [neigen], device vectors [neigen, dim], host resid
-    [neigen]."""
+    rounds.  ``matvec64`` maps rows [m, dim] -> [m, dim] in float64, or in
+    complex128 for complex rows (then it is the JAX package's
+    ``rayleigh_refine_split_device``).  Returns host theta [neigen],
+    device vectors [neigen, dim], host resid [neigen]."""
     dim = vecs.shape[1]
-    q, _ = torch.linalg.qr(vecs.to(torch.float64).T)
+    q, _ = torch.linalg.qr(vecs.to(_hi(vecs.dtype)).T)
 
     def hcols(cols):
-        return matvec_real64(cols.T.contiguous()).T
+        return matvec64(cols.T.contiguous()).T
 
     w = hcols(q)
     theta = new_vecs = resid = None
     for it in range(max_expand + 1):
-        hk = (q.T @ w).cpu().numpy()
-        hk = 0.5 * (hk + hk.T)
+        hk = (q.conj().T @ w).cpu().numpy()
+        hk = 0.5 * (hk + hk.conj().T)
         theta, s = np.linalg.eigh(hk)
         s_d = torch.as_tensor(s).to(q)
         new_vecs = q @ s_d
@@ -355,17 +453,17 @@ def rayleigh_refine_real(matvec_real64, vecs: torch.Tensor, neigen: int,
 def _canonical_rr(g_np, hk_np):
     """Canonical-orthogonalisation Rayleigh-Ritz per member (host,
     k <= 96): whiten with G's eigenbasis (dropping directions below 1e-10
-    of its largest eigenvalue), then eigh the whitened Rayleigh block.
-    Returns row-major eigenvectors s_t [B, k, k] (padded rows zero) and
-    theta [B, k] (padded +1e30)."""
+    of its largest eigenvalue), then eigh the whitened Rayleigh block
+    (Hermitian for complex rows).  Returns row-major eigenvectors s_t
+    [B, k, k] (padded rows zero) and theta [B, k] (padded +1e30)."""
     b, k, _ = g_np.shape
-    s_t = np.zeros((b, k, k))
+    s_t = np.zeros((b, k, k), hk_np.dtype)
     theta = np.full((b, k), 1e30)
     for i in range(b):
         lam, u = np.linalg.eigh(g_np[i])
         keep = lam > 1e-10 * max(lam.max(), 1e-300)
         t = u[:, keep] / np.sqrt(lam[keep])
-        hc = t.T @ hk_np[i] @ t
+        hc = t.conj().T @ hk_np[i] @ t
         th, sc = np.linalg.eigh(hc)
         si = t @ sc
         kk = si.shape[1]
@@ -382,22 +480,26 @@ def _apply_rows(apply_fn, op, x: torch.Tensor) -> torch.Tensor:
 
 def rayleigh_refine_real_batched(apply_fn, vecs: torch.Tensor, neigen: int,
                                  op64, rtol=None, max_expand: int = 24):
-    """Batched real Rayleigh-Ritz refine on the device: vecs [B, k, dim]
-    approximate eigenbases are refined by residual-block expansion until
-    every member's wanted residuals meet ``rtol*max(|theta|,1)`` (or
-    ``max_expand`` rounds / the memory cap).  Only k x k blocks and
-    residual norms reach the host.  Returns host (theta [B, ne],
-    vecs [B, ne, dim], resid [B, ne])."""
+    """Batched Rayleigh-Ritz refine on the device: vecs [B, k, dim]
+    approximate eigenbases (real, or complex for complex sectors, where
+    it is the JAX package's ``rayleigh_refine_split_batched``) are
+    refined in f64 by residual-block expansion until every member's
+    wanted residuals meet ``rtol*max(|theta|,1)`` (or ``max_expand``
+    rounds / the memory cap).  Only k x k blocks and residual norms reach
+    the host.  Returns host (theta [B, ne], vecs [B, ne, dim],
+    resid [B, ne])."""
     device = _device_of(op64)
-    v64 = vecs.to(device=device, dtype=torch.float64)
+    hi = _hi(vecs.dtype)
+    v64 = vecs.to(device=device, dtype=hi)
     b, k0, dim = v64.shape
     ne = neigen
     k_cap = max(k0, min(96, dim, int(budget_bytes(device, 0.125)
-                                     / max(16 * b * dim, 1))))
+                                     / max(2 * _itemsize(hi) * b * dim,
+                                           1))))
     stages = [k0] if rtol is None else \
         sorted({min(k0 + 4 * ne, k_cap), k_cap})
     kalloc = stages[0]
-    q = torch.zeros(b, kalloc, dim, dtype=torch.float64, device=device)
+    q = torch.zeros(b, kalloc, dim, dtype=hi, device=device)
     w = torch.zeros_like(q)
     q[:, :k0] = v64
     w[:, :k0] = _apply_rows(apply_fn, op64, v64)
@@ -406,10 +508,11 @@ def rayleigh_refine_real_batched(apply_fn, vecs: torch.Tensor, neigen: int,
     theta = resid_np = x = None
     rstall = _RefineStall()
     for it in range(max_expand + 1):
-        g = torch.bmm(q, q.transpose(1, 2))
-        hk = torch.bmm(q, w.transpose(1, 2))
-        g_np = (0.5 * (g + g.transpose(1, 2))).cpu().numpy()
-        hk_np = (0.5 * (hk + hk.transpose(1, 2))).cpu().numpy()
+        qh = q.conj()
+        g = torch.bmm(qh, q.transpose(1, 2))          # <q_k|q_l>
+        hk = torch.bmm(qh, w.transpose(1, 2))         # <q_k|H q_l>
+        g_np = (0.5 * (g + g.transpose(1, 2).conj())).cpu().numpy()
+        hk_np = (0.5 * (hk + hk.transpose(1, 2).conj())).cpu().numpy()
         s_t, theta = _canonical_rr(g_np, hk_np)
         th = np.where(theta[:, :ne] >= 1e30, 0.0, theta[:, :ne])
         s_ne = torch.as_tensor(np.ascontiguousarray(s_t[:, :ne])).to(q)
@@ -431,7 +534,7 @@ def rayleigh_refine_real_batched(apply_fn, vecs: torch.Tensor, neigen: int,
             q = torch.nn.functional.pad(q, (0, 0, 0, pad))
             w = torch.nn.functional.pad(w, (0, 0, 0, pad))
         for _ in range(2):                 # CGS2 against the current q
-            r = r - torch.bmm(torch.bmm(r, q.transpose(1, 2)), q)
+            r = r - torch.bmm(torch.bmm(r, q.transpose(1, 2).conj()), q)
         rhat = r / torch.linalg.vector_norm(r, dim=2, keepdim=True) \
             .clamp_min(1e-30)
         q[:, k_act:k_act + ne] = rhat
@@ -446,22 +549,19 @@ def rayleigh_refine_real_batched(apply_fn, vecs: torch.Tensor, neigen: int,
 # mixed precision: f32 Krylov stage + f64 Rayleigh-Ritz refine
 # ---------------------------------------------------------------------------
 
-def lanczos_eigh_mixed_real(apply32, apply64, dim: int,
-                            neigen: int, ncv: int, maxiter: int = 512,
-                            tol: float = 1e-14,
-                            v0: Optional[np.ndarray] = None,
-                            seed: int = 8527, op32=None, op64=None,
-                            vec_rtol: Optional[float] = None) -> EighResult:
-    """Mixed-precision real eigensolver: an f32 thick-restart Krylov stage
-    (the fused CUDA H·v on the card), its Ritz vectors refined in f64 by
-    Rayleigh-Ritz with residual expansion, and a full-f64 thick-restart
-    solve (warm-started) when the refine misses ``vec_rtol``.  ``op64``
-    may be a zero-argument callable, built only after the f32 stage."""
+# sectors whose refined f32 vectors missed vec_rtol and were re-solved in
+# f64, counted across calls (read and reset by callers that report it)
+f64_fallbacks = 0
+
+def _mixed(eigh, apply32, apply64, dim, neigen, ncv, maxiter, tol, v0,
+           seed, op32, op64, vec_rtol, lo, hi) -> EighResult:
+    """The serial mixed scheme over ``eigh`` (lanczos_eigh_real or
+    lanczos_eigh_split) at the Krylov dtype ``lo`` and the f64 dtype
+    ``hi``."""
     f32_tol = max(tol, 2e-6)
-    res32 = lanczos_eigh_real(apply32, dim, neigen=neigen, ncv=ncv,
-                              maxiter=maxiter, tol=f32_tol, v0=v0,
-                              seed=seed, dtype=torch.float32, op=op32,
-                              device_vectors=True)
+    res32 = eigh(apply32, dim, neigen=neigen, ncv=ncv, maxiter=maxiter,
+                 tol=f32_tol, v0=v0, seed=seed, dtype=lo, op=op32,
+                 device_vectors=True)
     op32 = None
     if callable(op64):
         op64 = op64()
@@ -474,14 +574,77 @@ def lanczos_eigh_mixed_real(apply32, apply64, dim: int,
         return EighResult(theta, vecs.cpu().numpy(), nmv, True)
     # full-f64 polish at the caller's tolerance; ncv shrinks to what an
     # f64 basis can afford
+    global f64_fallbacks
+    f64_fallbacks += 1
     ncv_fb = min(ncv, max(neigen + 2, int(budget_bytes(
-        _device_of(op64), 0.33) / (dim * 8)) - 1))
-    res64 = lanczos_eigh_real(apply64, dim, neigen=neigen,
-                              ncv=ncv_fb, maxiter=maxiter,
-                              tol=max(tol, _f64_dot_floor()),
-                              v0=vecs[0].cpu().numpy(), seed=seed, op=op64)
+        _device_of(op64), 0.33) / (dim * _itemsize(hi))) - 1))
+    res64 = eigh(apply64, dim, neigen=neigen, ncv=ncv_fb, maxiter=maxiter,
+                 tol=max(tol, _f64_dot_floor()),
+                 v0=vecs[0].cpu().numpy(), seed=seed, dtype=hi, op=op64)
     return EighResult(res64.eigenvalues, res64.eigenvectors,
                       nmv + res64.iterations, res64.converged)
+
+
+def lanczos_eigh_mixed_real(apply32, apply64, dim: int,
+                            neigen: int, ncv: int, maxiter: int = 512,
+                            tol: float = 1e-14,
+                            v0: Optional[np.ndarray] = None,
+                            seed: int = 8527, op32=None, op64=None,
+                            vec_rtol: Optional[float] = None) -> EighResult:
+    """Mixed-precision real eigensolver: an f32 thick-restart Krylov stage
+    (the fused CUDA H·v on the card), its Ritz vectors refined in f64 by
+    Rayleigh-Ritz with residual expansion, and a full-f64 thick-restart
+    solve (warm-started) when the refine misses ``vec_rtol``.  ``op64``
+    may be a zero-argument callable, built only after the f32 stage."""
+    return _mixed(lanczos_eigh_real, apply32, apply64, dim, neigen, ncv,
+                  maxiter, tol, v0, seed, op32, op64, vec_rtol,
+                  torch.float32, torch.float64)
+
+
+def lanczos_eigh_mixed(apply32, apply64, dim: int, neigen: int, ncv: int,
+                       maxiter: int = 512, tol: float = 1e-14,
+                       v0: Optional[np.ndarray] = None, seed: int = 8527,
+                       op32=None, op64=None,
+                       vec_rtol: Optional[float] = None) -> EighResult:
+    """Mixed-precision complex eigensolver: the complex64 Krylov stage on
+    the fused complex CUDA kernel, the complex128 refine, and the
+    complex128 fallback of :func:`lanczos_eigh_mixed_real`."""
+    return _mixed(lanczos_eigh_split, apply32, apply64, dim, neigen, ncv,
+                  maxiter, tol, v0, seed, op32, op64, vec_rtol,
+                  torch.complex64, torch.complex128)
+
+
+def _mixed_batched(eigh_b, apply32, apply64, nbatch, dim, neigen, ncv,
+                   maxiter, tol, v0, seed, op32, op64, fallback64,
+                   vec_rtol, lo) -> list:
+    """The batched mixed scheme over ``eigh_b`` at the Krylov dtype
+    ``lo``."""
+    f32_tol = max(tol, 2e-6)
+    res32 = eigh_b(apply32, nbatch, dim, neigen=neigen, ncv=ncv,
+                   maxiter=maxiter, tol=f32_tol, v0=v0, seed=seed, op=op32,
+                   dtype=lo, device_vectors=True)
+    del op32
+    if callable(op64):
+        op64 = op64()
+    vecs32 = torch.stack([r.eigenvectors for r in res32])   # [B, ne, dim]
+    rtol = _mixed_vec_rtol(vec_rtol)
+    theta, vecs, resid = rayleigh_refine_real_batched(
+        apply64, vecs32, neigen, op64=op64, rtol=rtol)
+    okm = np.all(resid <= rtol * np.maximum(np.abs(theta), 1.0), axis=1)
+    global f64_fallbacks
+    if fallback64 is not None:
+        f64_fallbacks += int(np.count_nonzero(~okm))
+    out = []
+    for i in range(nbatch):
+        nmv = res32[i].iterations + vecs32.shape[1]
+        if okm[i] or fallback64 is None:
+            out.append(EighResult(theta[i].copy(), vecs[i].copy(), nmv,
+                                  bool(okm[i])))
+        else:
+            r64 = fallback64(i, vecs[i, 0])
+            out.append(EighResult(r64.eigenvalues, r64.eigenvectors,
+                                  nmv + r64.iterations, r64.converged))
+    return out
 
 
 def lanczos_eigh_mixed_real_batched(apply32, apply64,
@@ -497,30 +660,25 @@ def lanczos_eigh_mixed_real_batched(apply32, apply64,
     run one batched f32 Krylov stream, refined by one batched f64
     Rayleigh-Ritz pass; members whose refined residual misses
     ``vec_rtol`` are re-solved by ``fallback64(i, v0_row)``."""
-    f32_tol = max(tol, 2e-6)
-    res32 = lanczos_eigh_real_batched(
-        apply32, nbatch, dim, neigen=neigen, ncv=ncv,
-        maxiter=maxiter, tol=f32_tol, v0=v0, seed=seed, op=op32,
-        dtype=torch.float32, device_vectors=True)
-    del op32
-    if callable(op64):
-        op64 = op64()
-    vecs32 = torch.stack([r.eigenvectors for r in res32])   # [B, ne, dim]
-    rtol = _mixed_vec_rtol(vec_rtol)
-    theta, vecs, resid = rayleigh_refine_real_batched(
-        apply64, vecs32, neigen, op64=op64, rtol=rtol)
-    okm = np.all(resid <= rtol * np.maximum(np.abs(theta), 1.0), axis=1)
-    out = []
-    for i in range(nbatch):
-        nmv = res32[i].iterations + vecs32.shape[1]
-        if okm[i] or fallback64 is None:
-            out.append(EighResult(theta[i].copy(), vecs[i].copy(), nmv,
-                                  bool(okm[i])))
-        else:
-            r64 = fallback64(i, vecs[i, 0])
-            out.append(EighResult(r64.eigenvalues, r64.eigenvectors,
-                                  nmv + r64.iterations, r64.converged))
-    return out
+    return _mixed_batched(lanczos_eigh_real_batched, apply32, apply64,
+                          nbatch, dim, neigen, ncv, maxiter, tol, v0, seed,
+                          op32, op64, fallback64, vec_rtol, torch.float32)
+
+
+def lanczos_eigh_mixed_split_batched(apply32, apply64, nbatch: int,
+                                     dim: int, neigen: int, ncv: int,
+                                     maxiter: int = 512, tol: float = 1e-14,
+                                     v0: Optional[np.ndarray] = None,
+                                     seed: int = 8527, op32=None,
+                                     op64=None,
+                                     fallback64: Optional[Callable] = None,
+                                     vec_rtol: Optional[float] = None):
+    """Complex-sector twin of :func:`lanczos_eigh_mixed_real_batched`:
+    the batched complex64 Krylov stream on the complex kernel, the
+    batched complex128 refine, and ``fallback64`` per missing member."""
+    return _mixed_batched(lanczos_eigh_split_batched, apply32, apply64,
+                          nbatch, dim, neigen, ncv, maxiter, tol, v0, seed,
+                          op32, op64, fallback64, vec_rtol, torch.complex64)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Copy of the JAX package's ``ops/sector_ham.py`` without the C++ table
 builders (the numpy path only).  Redesign of the reference sparse builder
-(/root/reference/ED_HAMILTONIAN_SPARSE_HxV.f90:40-152 and
+(the reference's ED_HAMILTONIAN_SPARSE_HxV.f90:40-152 and
 ED_HAMILTONIAN/sparse/{H_local,H_up,H_dw,H_non_local}.f90).  The sector
 Hamiltonian keeps the reference's exact 4-term tensor-product split
 

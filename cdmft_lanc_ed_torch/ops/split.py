@@ -1,17 +1,22 @@
-"""Real dense-factor sector kit (the real half of the JAX package's
-``ops/split.py``, :326-595).
+"""Dense-factor sector kits: the real kit and the complex pair kit (the
+JAX package's ``ops/split.py``, :161-304 and :326-595).
 
-A real symmetric sector Hamiltonian acts on the sector vector viewed as
-X [DimDw, DimUp] as
+A sector Hamiltonian acts on the sector vector viewed as X [DimDw, DimUp]
+as
 
     H·x = diag ⊙ X + H_dw · X + X · H_upᵀ  (+ Σ_t amp_t O^dw_t X O^upᵀ_t)
 
 with the two spin factors stored as small dense matrices: the full H is
-never materialised.  An f32 plane goes to the hand-written CUDA kernel
-(:mod:`.fused`); an f64 plane (Rayleigh-Ritz refine, GF tridiagonalisation,
-``ed_precision="complex128"``) is left to ``torch.matmul``, as the JAX
-package leaves it to XLA.  The Jx/Jp terms (``nd_*``, empty for Hubbard)
-stay ``torch.matmul`` outside the kernel.
+never materialised.  A real Hamiltonian takes the real kit
+(:class:`DenseRealOp`, one real plane); a complex one takes the pair kit
+(:class:`DenseComplexOp`, complex tensors: the card has complex64 and
+complex128, so the JAX package's re/im planes become one tensor).  An f32
+plane or a complex64 vector goes to the hand-written CUDA kernels
+(:mod:`.fused`); f64 and complex128 (Rayleigh-Ritz refine, GF
+tridiagonalisation, ``ed_precision="complex128"``) are left to
+``torch.matmul``, as the JAX package leaves them to XLA.  The Jx/Jp terms
+(``nd_*``, empty for Hubbard and BHZ) stay ``torch.matmul`` outside the
+kernels.
 
 Sector dims snap to the ``_BUCKETS`` ladder: padded modes carry a +1e6
 diagonal and are decoupled, so vectors that start zero there stay zero.
@@ -102,10 +107,15 @@ def _dense_real_host(op: SectorOperator, pad_to: Optional[tuple]) -> dict:
                 nd_dw=nd_dw)
 
 
-def _to_op(host: dict, dtype, device) -> DenseRealOp:
-    return DenseRealOp(**{k: torch.as_tensor(np.ascontiguousarray(v))
-                          .to(device=device, dtype=dtype)
-                          for k, v in host.items()})
+def _to_op(host: dict, dtype, device, cls=None):
+    """``cls`` (default :class:`DenseRealOp`) of the host arrays in
+    ``host``; ``dtype`` is the real dtype, and complex fields take its
+    complex counterpart."""
+    ctype = complex_dtype(dtype)
+    return (cls or DenseRealOp)(**{
+        k: torch.as_tensor(np.ascontiguousarray(v)).to(
+            device=device, dtype=ctype if np.iscomplexobj(v) else dtype)
+        for k, v in host.items()})
 
 
 def to_device_dense_real(op: SectorOperator, pad_to: tuple = None,
@@ -158,10 +168,143 @@ def apply_real_flat(dev: DenseRealOp, x: torch.Tensor) -> torch.Tensor:
 apply_real_flat_batched = apply_real_flat
 
 
+# ---------------------------------------------------------------------------
+# complex pair kit
+# ---------------------------------------------------------------------------
+
+_COMPLEX = {torch.float64: torch.complex128, torch.float32: torch.complex64,
+            torch.complex128: torch.complex128,
+            torch.complex64: torch.complex64}
+
+
+def complex_dtype(dtype) -> torch.dtype:
+    """complex128 for float64 (or complex128), complex64 for float32 (or
+    complex64): the pair kit's vectors at a plane precision."""
+    return _COMPLEX[dtype]
+
+
+def real_dtype(dtype) -> torch.dtype:
+    """float64 for float64/complex128, float32 for float32/complex64."""
+    return torch.float32 if dtype in (torch.float32, torch.complex64) \
+        else torch.float64
+
+
+@dataclass
+class DenseComplexOp:
+    """Sector Hamiltonian with COMPLEX dense spin factors: the JAX
+    package's ``DenseSplitOp`` (split.py:161-189) with each re/im/re+im
+    plane triple held as one complex tensor.  Every field may carry a
+    leading batch axis (same-bucket sectors stacked)."""
+    diag: torch.Tensor        # [DimDw, DimUp] real
+    hdw: torch.Tensor         # [DimDw, DimDw] complex
+    hupT: torch.Tensor        # [DimUp, DimUp] complex: H_upᵀ, not H_upᴴ
+    nd_amp: torch.Tensor      # [T] complex
+    nd_upT: torch.Tensor      # [T, DimUp, DimUp] real sign patterns
+    nd_dw: torch.Tensor       # [T, DimDw, DimDw] real
+
+
+def _dense_pair_host(op: SectorOperator, pad_to: Optional[tuple]) -> dict:
+    """Host arrays of :class:`DenseComplexOp` (complex128 factors; the
+    padding contract of the JAX package's to_device_dense_split)."""
+    host = _dense_real_host(op, pad_to)
+    hu = op.h_up.to_dense()
+    hd = op.h_dw.to_dense()
+    du, dd = host["diag"].shape[1], host["diag"].shape[0]
+    hu_p = np.zeros((du, du), np.complex128)
+    hu_p[:op.dim_up, :op.dim_up] = hu
+    hd_p = np.zeros((dd, dd), np.complex128)
+    hd_p[:op.dim_dw, :op.dim_dw] = hd
+    host.update(hdw=hd_p, hupT=hu_p.T,
+                nd_amp=np.array([complex(t.amp) for t in op.nd_terms],
+                                np.complex128))
+    return host
+
+
+def to_device_dense_split(op: SectorOperator, pad_to: tuple = None,
+                          dtype=torch.float64, device="cpu"
+                          ) -> DenseComplexOp:
+    """Device tensors of the pair kit, optionally zero-padded to the
+    bucket shape ``pad_to=(ddp, dup)``.  ``dtype`` float64 gives a
+    complex128 operator, float32 a complex64 one (the kernel's)."""
+    return _to_op(_dense_pair_host(op, pad_to), real_dtype(dtype), device,
+                  DenseComplexOp)
+
+
+def stack_pair_ops(ops, pad: tuple, dtype=torch.float64,
+                   device="cpu") -> DenseComplexOp:
+    """Stacked DenseComplexOp with a leading batch axis over same-bucket
+    sectors (for :func:`apply_pair_flat_batched`)."""
+    ddp, dup = pad
+    hosts = [_dense_pair_host(
+        op, None if (op.dim_dw, op.dim_up) == (ddp, dup) else pad)
+        for op in ops]
+    return _to_op({f.name: np.stack([h[f.name] for h in hosts])
+                   for f in fields(DenseComplexOp)}, real_dtype(dtype),
+                  device, DenseComplexOp)
+
+
+def matvec_dense_pair(op: DenseComplexOp, x: torch.Tensor) -> torch.Tensor:
+    """H·x for a complex x [..., DimDw, DimUp] (the JAX package's
+    split.matvec_dense_pair on one complex tensor instead of an (xr, xi)
+    pair).  Operator batching as :func:`matvec_dense_real`.  complex64
+    goes to the fused CUDA kernel (its plain version on the CPU);
+    complex128 runs the two matmuls."""
+    if x.dtype == torch.complex64:
+        lead = x.shape[:-2]
+        x3 = x.reshape((-1,) + tuple(x.shape[-2:])) if len(lead) != 1 \
+            else x
+        out = fused.fused_pair_matvec(op.diag, op.hdw, op.hupT,
+                                      x3.resolve_conj().contiguous()
+                                      ).reshape(x.shape)
+    else:
+        out = op.diag * x + op.hdw @ x + x @ op.hupT
+    for t in range(op.nd_amp.shape[-1]):
+        up = op.nd_upT[..., t, :, :].to(x.dtype)
+        dw = op.nd_dw[..., t, :, :].to(x.dtype)
+        out = out + op.nd_amp[..., t, None, None] * (dw @ (x @ up))
+    return out
+
+
+def apply_pair_flat(dev: DenseComplexOp, x: torch.Tensor) -> torch.Tensor:
+    """Flat complex matvec: x [..., dim_p] -> H·x [..., dim_p]."""
+    sh = tuple(dev.diag.shape[-2:])
+    return matvec_dense_pair(dev, x.reshape(x.shape[:-1] + sh)) \
+        .reshape(x.shape)
+
+
+# Batched flat matvec: dev fields and x [B, dim_p] share the leading batch
+# axis, which the broadcasting products of apply_pair_flat already handle.
+apply_pair_flat_batched = apply_pair_flat
+
+
+def build_pair_padded(op: SectorOperator, dtype=torch.float64,
+                      device="cpu"):
+    """(dev, real_flag, dim_p, embed, extract) for the pair path, or None
+    when the factors are too large for dense factors.  ``dev`` is always a
+    :class:`DenseComplexOp` (a real operator has zero imaginary parts;
+    the JAX package's four-matmul real-operator pair path is not ported),
+    and ``real_flag`` says whether the operator is real."""
+    dd, du = op.dim_dw, op.dim_up
+    if max(du, dd) > DENSE_FACTOR_MAX:
+        return None
+    ddp, dup = _bucket(dd), _bucket(du)
+    dev = to_device_dense_split(
+        op, pad_to=(ddp, dup) if (ddp, dup) != (dd, du) else None,
+        dtype=dtype, device=device)
+
+    def embed(v):
+        return embed_real(v, dd, du, ddp, dup)
+
+    def extract(v):
+        return extract_real(v, dd, du, ddp, dup)
+
+    return dev, op_is_real(op), ddp * dup, embed, extract
+
+
 def embed_real(v: np.ndarray, dd: int, du: int, ddp: int, dup: int
                ) -> np.ndarray:
-    """Real host array [*, dd*du] -> padded [*, ddp*dup] (zeros in the
-    decoupled padding modes)."""
+    """Host array [*, dd*du] -> padded [*, ddp*dup] (zeros in the
+    decoupled padding modes); a complex array stays complex."""
     v = np.asarray(v)
     out = np.zeros(v.shape[:-1] + (ddp, dup), v.dtype)
     out[..., :dd, :du] = v.reshape(v.shape[:-1] + (dd, du))

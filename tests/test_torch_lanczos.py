@@ -95,6 +95,7 @@ def test_lanczos_eigh_mixed_real(sector, f64_pair):
                                     jkit[1], neigen=NEIGEN, ncv=NCV,
                                     maxiter=MAXITER, tol=TOL, v0=v0,
                                     op32=j32, op64=jkit[0])
+    tl.f64_fallbacks = 0
     tr = tl.lanczos_eigh_mixed_real(ts.apply_real_flat, ts.apply_real_flat,
                                     tkit[1], neigen=NEIGEN, ncv=NCV,
                                     maxiter=MAXITER, tol=TOL, v0=v0,
@@ -103,6 +104,7 @@ def test_lanczos_eigh_mixed_real(sector, f64_pair):
     # sides and the f64 fallback, started from the refined ground vector,
     # can stall on the second pair in either package (its verdict turns
     # on rounding); the eigenvalues are what both certify
+    assert tl.f64_fallbacks == 1
     np.testing.assert_allclose(tr.eigenvalues, np.asarray(jr.eigenvalues),
                                rtol=0, atol=1e-8)
     np.testing.assert_allclose(tr.eigenvalues, f64_pair[1].eigenvalues,
