@@ -10,11 +10,17 @@ schedule); the rest are solved one by one.  ``ed_precision="mixed"`` runs
 the f32 (complex64) Krylov stage on the fused CUDA H·v and refines in f64
 (complex128).
 
-Spin factors beyond the dense-factor limit (Ns >= 16) are a later slice of
-the port and raise NotImplementedError.
+Spin factors beyond the dense-factor limit (Ns >= 16) take the
+block-sparse large kits of ``ops/large.py`` (the JAX package's
+diag.py:561-675, single-chip branches): each such sector is solved on its
+own, its eigenvectors stay on the card.  A real mixed solve runs a bf16
+coarse stage, the f32 stage and the f64 refine, all on the tile kit (the
+JAX package's two-kit f64 routing through ``hier_dev`` existed for a
+16 GB chip and is not ported); complex mixed solves have no coarse stage.
 """
 from __future__ import annotations
 
+import math
 import os
 import time
 import warnings
@@ -27,11 +33,8 @@ import torch
 from .config import EDConfig
 from .device import budget_bytes
 from .eigenspace import StateList
-from .ops import lanczos, sector_ham, split
+from .ops import large, lanczos, sector_ham, split
 from .utils import fock
-
-_LARGE_TODO = ("spin factors above the dense-factor limit (Ns >= 16) are "
-               "not ported yet (ROADMAP Queue 1 item 7: large sectors)")
 
 
 @dataclass
@@ -124,12 +127,25 @@ class DiagState:
 SectorBuilder = Callable[[int, int], sector_ham.SectorOperator]
 
 
+def is_large(op: sector_ham.SectorOperator) -> bool:
+    """True when a spin factor exceeds the dense-factor limit."""
+    return max(op.dim_up, op.dim_dw) > split.DENSE_FACTOR_MAX
+
+
+def large_sector(ns: int, nup: int, ndw: int) -> bool:
+    """:func:`is_large` of sector (nup, ndw) without building it."""
+    return max(math.comb(ns, nup), math.comb(ns, ndw)) \
+        > split.DENSE_FACTOR_MAX
+
+
 def _kit(op: sector_ham.SectorOperator, dtype, device):
     """(apply_fn, dev, is_real, dim_p, embed, extract): the real kit of a
-    real ``op``, else the complex pair kit; NotImplementedError for
-    factors beyond the dense-factor limit."""
-    if max(op.dim_up, op.dim_dw) > split.DENSE_FACTOR_MAX:
-        raise NotImplementedError(_LARGE_TODO)
+    real ``op``, else the complex pair kit; the block-sparse large kits
+    for factors beyond the dense-factor limit."""
+    if is_large(op):
+        dev, real, dim_p, embed, extract = large.build_pair_padded_large(
+            op, dtype=dtype, device=device)
+        return large.apply_large_real_flat, dev, real, dim_p, embed, extract
     kit = split.build_real_padded(op, dtype=dtype, device=device)
     if kit is not None:
         return (split.apply_real_flat, kit[0], True) + tuple(kit[1:])
@@ -213,8 +229,54 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
                 f"[{time.time() - t0:6.2f}s]")
 
 
+def _solve_large(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
+                 device):
+    """One large sector on the tile kits (the JAX package's
+    diag.py:561-675, single chip); the eigenvectors stay on the device.
+    The f64 operator of a mixed solve is built after its Krylov stage."""
+    rng = np.random.default_rng(8527)
+    real = split.op_is_real(op)
+    apply1 = large.apply_large_real_flat
+    kw = dict(neigen=neigen, ncv=nblock, maxiter=nitermax * nblock,
+              tol=cfg.lanc_tolerance, device_vectors=True)
+    if cfg.ed_precision == "mixed":
+        dev32, _, dim_p, embed, extract = large.build_pair_padded_large(
+            op, dtype=torch.float32, device=device)
+        v0 = embed(rng.normal(size=dim)) if real else \
+            embed(rng.normal(size=dim) + 1j * rng.normal(size=dim))
+        op64 = lambda: large.build_pair_padded_large(  # noqa: E731
+            op, dtype=torch.float64, device=device)[0]
+        if real:
+            # two-stage Krylov: bf16 tiles for the cold restarts, f32 below
+            # bf16 resolution, the f64 refine certifies
+            dev16 = large.build_real_padded_large(
+                op, dtype=torch.bfloat16, reuse=dev32, device=device)[0]
+            res = lanczos.lanczos_eigh_mixed_real(
+                apply1, apply1, dim_p, v0=v0, op32=dev32, op64=op64,
+                op16=dev16, vec_rtol=cfg.ed_mixed_vec_tol, **kw)
+        else:
+            res = lanczos.lanczos_eigh_mixed(
+                apply1, apply1, dim_p, v0=v0, op32=dev32, op64=op64,
+                vec_rtol=cfg.ed_mixed_vec_tol, **kw)
+    else:
+        dev, _, dim_p, embed, extract = large.build_pair_padded_large(
+            op, dtype=torch.float64, device=device)
+        if real:
+            res = lanczos.lanczos_eigh_real(
+                apply1, dim_p, v0=embed(rng.normal(size=dim)), op=dev, **kw)
+        else:
+            res = lanczos.lanczos_eigh_split(
+                apply1, dim_p, v0=embed(rng.normal(size=dim)
+                                        + 1j * rng.normal(size=dim)),
+                op=dev, **kw)
+    return lanczos.EighResult(res.eigenvalues, extract(res.eigenvectors),
+                              res.iterations, res.converged)
+
+
 def _solve_serial(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
                   device):
+    if is_large(op):
+        return _solve_large(cfg, op, dim, neigen, nblock, nitermax, device)
     rng = np.random.default_rng(8527)
     apply1, dev, is_real, dim_p, embed, extract = _kit(op, torch.float64,
                                                        device)
@@ -298,7 +360,7 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
 
     # --- sector-parallel batched dispatch: same-bucket Lanczos sectors of
     # one kind (real or complex) run through one batched thick-restart
-    # stream ---
+    # stream; large sectors are solved one by one ---
     batched_results = {}
     groups = {}
     for isector in active:
@@ -306,9 +368,9 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
             sector_plan(isector)
         if not lanc_solve:
             continue
+        if large_sector(ns, nup, ndw):
+            continue                       # solved on its own below
         op = build(nup, ndw)
-        if max(op.dim_up, op.dim_dw) > split.DENSE_FACTOR_MAX:
-            raise NotImplementedError(_LARGE_TODO)
         key = (split._bucket(op.dim_dw), split._bucket(op.dim_up),
                len(op.nd_terms), split.op_is_real(op))
         groups.setdefault(key, []).append(
@@ -359,7 +421,9 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
                     f"after ncv escalation to {nblock}; retained eigenpairs "
                     f"may be degraded", RuntimeWarning)
             eig_values = np.asarray(res.eigenvalues)
-            eig_basis = np.asarray(res.eigenvectors)
+            eig_basis = res.eigenvectors          # large: on the device
+            if not isinstance(eig_basis, torch.Tensor):
+                eig_basis = np.asarray(eig_basis)
         else:
             w, vecs = lanczos.dense_eigh(op.to_dense())
             eig_values = w[:neigen]

@@ -2,9 +2,12 @@
 
 Port of the JAX package's ``eigenspace.py`` (itself replacing the
 reference linked-list ``sparse_espace``, ED_EIGENSPACE.f90).  States keep
-their sector label and the eigenvector as a host array in the reference
-flat layout ``i = iup + idw*DimUp``.  Twin states (ed_twin) are pointer
-entries whose vector is rebuilt on demand by the spin-flip reordering
+their sector label and the eigenvector in the reference flat layout
+``i = iup + idw*DimUp``: a host array for dense-factor sectors, a tensor
+left on the card for large sectors (the JAX package's device arrays and
+``SplitVector`` planes, eigenspace.py:22-60; the port's complex vectors
+are complex tensors).  Twin states (ed_twin) are pointer entries whose
+vector is rebuilt on demand by the spin-flip reordering
 (ED_EIGENSPACE.f90:464-496; ED_SETUP.f90:854-878).
 """
 from __future__ import annotations
@@ -14,6 +17,7 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from .utils import fock
 
@@ -22,7 +26,7 @@ from .utils import fock
 class EigenState:
     energy: float
     isector: int
-    vector: Optional[np.ndarray]       # None for twin pointer entries
+    vector: object          # np.ndarray or torch.Tensor; None for twins
     itwin: bool = False
     twin_of: Optional["EigenState"] = None
 
@@ -33,6 +37,9 @@ class EigenState:
         src = self.twin_of
         nup, ndw = fock.get_quantum_numbers(src.isector, ns)
         order = fock.twin_sector_order(ns, nup, ndw)
+        if isinstance(src.vector, torch.Tensor):
+            return src.vector[torch.as_tensor(order,
+                                              device=src.vector.device)]
         return src.vector[order]
 
 
@@ -83,7 +90,8 @@ class StateList:
                ns: int, twin: bool = False):
         keys = [s.energy for s in self.states]
         pos = bisect.bisect_right(keys, energy)
-        vector = np.asarray(vector)
+        if not isinstance(vector, torch.Tensor):     # device vectors stay
+            vector = np.asarray(vector)
         st = EigenState(energy, isector, vector)
         self.states.insert(pos, st)
         if twin:

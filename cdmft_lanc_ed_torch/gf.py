@@ -15,6 +15,11 @@ sector, ED_GF_NORMAL.f90):
 * every injection that targets the same (N_up, N_dw) sector and kind runs
   in one batched tridiagonalisation on the device (``ed_gf_precision``:
   f64/complex128 by default, f32/complex64 on the fused CUDA H·v);
+* a large target sector (Ns >= 16) takes the block-sparse kits of
+  ``ops/large.py`` with the batch folded into the SpMM width (the JAX
+  package's gf.py:364-416, single chip); a retained state on the card is
+  excited on the card, and its injections are built there chunk by
+  chunk, so no large vector crosses to the host;
 * Sigma = G0^{-1} - G^{-1} is one batched complex128 inversion over all
   frequencies on the device.
 """
@@ -29,8 +34,8 @@ import torch
 from .bath import BathBasis, DmftBath, basis_lso_of, invg0_bath_lso
 from .config import EDConfig
 from .device import budget_bytes
-from .diag import DiagState, SectorBuilder, _kit
-from .ops import lanczos, split
+from .diag import DiagState, SectorBuilder, _kit, is_large, large_sector
+from .ops import large, lanczos, split
 from .utils import fock
 from .utils.reshape import lso2nnn, nnn2lso
 
@@ -120,11 +125,12 @@ def _apply_dw(v2d: np.ndarray, tgt: np.ndarray, sgn: np.ndarray,
     return out
 
 
-def base_excitations(cfg: EDConfig, v2d: np.ndarray, nup: int, ndw: int,
+def base_excitations(cfg: EDConfig, v2d, nup: int, ndw: int,
                      ispin: int, create: bool):
     """All impurity-level excitations O_a|psi>, a=0..Nimp-1, as flattened
-    host vectors in the target sector: (vectors [Nimp, jdim] or None,
-    (jnup, jndw))."""
+    vectors in the target sector: (vectors [Nimp, jdim] or None,
+    (jnup, jndw)).  A device ``v2d`` (a large sector's state) is excited
+    on its device by index scatters (the JAX package's gf.py:169-196)."""
     ns, nimp = cfg.ns, cfg.nimp
     dn = 1 if create else -1
     if ispin == 0:
@@ -137,6 +143,22 @@ def base_excitations(cfg: EDConfig, v2d: np.ndarray, nup: int, ndw: int,
     src_dw = fock.sector_states(ns, ndw)
     tgt_up = fock.sector_states(ns, jnup)
     tgt_dw = fock.sector_states(ns, jndw)
+    if isinstance(v2d, torch.Tensor):
+        dev = v2d.device
+        out = torch.zeros((nimp, len(tgt_dw), len(tgt_up)), dtype=v2d.dtype,
+                          device=dev)
+        for a in range(nimp):
+            src, tgts = (src_up, tgt_up) if ispin == 0 else (src_dw, tgt_dw)
+            tgt, sgn = fock.op_map(src, tgts, a, create)
+            sel = np.nonzero(tgt >= 0)[0]
+            t_sel = torch.as_tensor(sel, device=dev)
+            t_tgt = torch.as_tensor(tgt[sel], device=dev)
+            t_sgn = torch.as_tensor(sgn[sel]).to(device=dev, dtype=v2d.dtype)
+            if ispin == 0:
+                out[a][:, t_tgt] = v2d[:, t_sel] * t_sgn
+            else:
+                out[a][t_tgt, :] = v2d[t_sel, :] * t_sgn[:, None]
+        return out.reshape(nimp, -1), (jnup, jndw)
     out = np.zeros((nimp, len(tgt_dw) * len(tgt_up)), dtype=v2d.dtype)
     for a in range(nimp):
         if ispin == 0:
@@ -229,7 +251,9 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
         ei = st.energy
         dim_up = len(fock.sector_states(ns, nup))
         dim_dw = len(fock.sector_states(ns, ndw))
-        v2d = np.asarray(st.get_vector(ns)).reshape(dim_dw, dim_up)
+        vec = st.get_vector(ns)
+        on_dev = isinstance(vec, torch.Tensor)
+        v2d = (vec if on_dev else np.asarray(vec)).reshape(dim_dw, dim_up)
         for ispin in range(cfg.nspin):
             for create in (True, False):
                 base, (jnup, jndw) = base_excitations(
@@ -237,24 +261,33 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
                 if base is None:
                     continue
                 isign = +1 if create else -1
-                vecs = [base[a] for a in range(nimp)]
+                # injection recipe (a, b, ph): c_a, c_a + c_b, and (chan4)
+                # c_a + ph c_b with ph = +i (add) / -i (del), reference
+                # ED_GF_NORMAL.f90:584-660
+                recipe = [(a, None, None) for a in range(nimp)]
                 meta = [((a, a), 1.0 + 0j, istate, ei, isign, ispin)
                         for a in range(nimp)]
                 for a in range(nimp):
                     for b in range(nimp):
                         if a == b:
                             continue
-                        vecs.append(base[a] + base[b])
+                        recipe.append((a, b, None))
                         meta.append(((a, b), 1.0 + 0j, istate, ei, isign,
                                      ispin))
                         if chan4:
-                            # reference: add c^+_a + i c^+_b ;
-                            # del c_a - i c_b (ED_GF_NORMAL.f90:584-660)
-                            ph = 1j if create else -1j
-                            vecs.append(base[a] + ph * base[b])
+                            recipe.append((a, b, 1j if create else -1j))
                             meta.append(((a, b), -1j, istate, ei, isign,
                                          ispin))
-                stacked = np.stack(vecs)
+                rows = _Injections(base, recipe)
+                if on_dev and large_sector(ns, jnup, jndw):
+                    # built on the card, chunk by chunk
+                    is_real = not (base.is_complex() or chan4)
+                    jobs.setdefault((jnup, jndw, is_real), []).append(
+                        (rows, meta))
+                    continue
+                stacked = rows.take(0, len(recipe))
+                if on_dev:
+                    stacked = stacked.cpu().numpy()
                 is_real = not (np.iscomplexobj(stacked)
                                and np.abs(stacked.imag).max() > 0.0)
                 if is_real:
@@ -264,33 +297,18 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
 
     # --- one batched tridiagonalisation per target-sector group ---------
     for (jnup, jndw, is_real), entries in jobs.items():
-        batch = np.concatenate([e[0] for e in entries])
         meta = [m for e in entries for m in e[1]]
-        jdim = batch.shape[1]
-        planes = 1 if is_real else 2
-        rows_max = max(nimp, int(budget_bytes(device, 0.25)
-                                 / max(jdim * 8 * 3 * planes, 1)))
-        nlanc = min(jdim, cfg.lanc_ngfiter)
         op = build(jnup, jndw)
-        apply1, dev, real_op, _dim_p, embed, _extract = _kit(op, gf_dtype,
-                                                             device)
-        # real injections on a real operator stay one real plane; all
-        # others run complex on the pair kit (a real operator's with zero
-        # imaginary parts)
-        if real_op and not is_real:
-            apply1 = split.apply_pair_flat
-            dev = split.build_pair_padded(op, dtype=gf_dtype,
-                                          device=device)[0]
-        tridiag = (lanczos.lanczos_tridiag_batched_real
-                   if real_op and is_real
-                   else lanczos.lanczos_tridiag_batched_split)
-        for lo in range(0, len(meta), rows_max):
-            sub = batch[lo:lo + rows_max]
-            sub_meta = meta[lo:lo + rows_max]
-            alphas, betas, norms = tridiag(apply1, embed(sub), nlanc,
-                                           op=dev, dtype=gf_dtype)
+        nlanc = min(op.dim, cfg.lanc_ngfiter)
+        if is_large(op):
+            chains = _chains_large(entries, op, is_real, nlanc, gf_dtype,
+                                   device)
+        else:
+            chains = _chains_dense(entries, op, is_real, nlanc, gf_dtype,
+                                   device, nimp)
+        for lo, (alphas, betas, norms) in chains:
             for k, ((a, b), vfac, istate, ei, isign, ispin) in \
-                    enumerate(sub_meta):
+                    enumerate(meta[lo:lo + len(norms)]):
                 ch = _chain_to_poles(alphas[k], betas[k],
                                      float(norms[k]), vfac, ei, egs,
                                      isign, cfg, zeta,
@@ -305,6 +323,98 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
         log(f"gf: target sector ({jnup},{jndw}) "
             f"{len(meta)} injections done")
     return spec, max_exc
+
+
+class _Injections:
+    """The injection rows of one (state, spin, create): ``recipe`` entries
+    (a, b, ph) give c_a (b None), c_a + c_b (ph None) or c_a + ph c_b of
+    the base excitations ``base`` [Nimp, jdim] (host array or device
+    tensor), built only when taken."""
+
+    def __init__(self, base, recipe):
+        self.base = base
+        self.recipe = recipe
+
+    def __len__(self):
+        return len(self.recipe)
+
+    def take(self, lo: int, hi: int):
+        base = self.base
+        rows = [base[a] if b is None else
+                base[a] + base[b] if ph is None else base[a] + ph * base[b]
+                for a, b, ph in self.recipe[lo:hi]]
+        return torch.stack(rows) if isinstance(base, torch.Tensor) \
+            else np.stack(rows)
+
+
+def _chains_dense(entries, op, is_real, nlanc, gf_dtype, device, nimp):
+    """Yields (first row, (alphas, betas, norms)) of the host injection
+    batch ``entries`` on the dense-factor kits, chunked so the Krylov
+    working set stays bounded."""
+    batch = np.concatenate([e[0] for e in entries])
+    jdim = batch.shape[1]
+    planes = 1 if is_real else 2
+    rows_max = max(nimp, int(budget_bytes(device, 0.25)
+                             / max(jdim * 8 * 3 * planes, 1)))
+    apply1, dev, real_op, _dim_p, embed, _extract = _kit(op, gf_dtype,
+                                                         device)
+    # real injections on a real operator stay one real plane; all others
+    # run complex on the pair kit (a real operator's with zero imaginary
+    # parts)
+    if real_op and not is_real:
+        apply1 = split.apply_pair_flat
+        dev = split.build_pair_padded(op, dtype=gf_dtype, device=device)[0]
+    tridiag = (lanczos.lanczos_tridiag_batched_real if real_op and is_real
+               else lanczos.lanczos_tridiag_batched_split)
+    for lo in range(0, len(batch), rows_max):
+        yield lo, tridiag(apply1, embed(batch[lo:lo + rows_max]), nlanc,
+                          op=dev, dtype=gf_dtype)
+
+
+def _chains_large(entries, op, is_real, nlanc, gf_dtype, device):
+    """Yields (first row, (alphas, betas, norms)) on the large kits of a
+    target sector beyond the dense-factor limit: real injections on a
+    real H take the real tile kit, the rest complex vectors (a real H's
+    real tiles apply to both planes); the batch is folded into the SpMM
+    width.  Rows are built on the device chunk by chunk, each chunk
+    holding its f64 start rows, the chain's three vectors and the
+    folded applier's temporaries within a quarter of the device memory
+    (at Ns=16 a few rows: one f32 vector of the (9,8) sector is 0.6 GB)."""
+    if split.op_is_real(op) and is_real:
+        dev, dim_p, embed, _ = large.build_real_padded_large(
+            op, dtype=gf_dtype, device=device)
+        tridiag = lanczos.lanczos_tridiag_batched_real
+    else:
+        dev, _, dim_p, embed, _ = large.build_pair_padded_large(
+            op, dtype=gf_dtype, device=device)
+        tridiag = lanczos.lanczos_tridiag_batched_split
+    planes = 1 if is_real else 2
+    itemsize = torch.empty((), dtype=gf_dtype).element_size()
+    row_bytes = dim_p * planes * (8 + 8 * itemsize)
+    rows_max = max(1, int(budget_bytes(device, 0.25) // row_bytes))
+    nrows = sum(len(e[1]) for e in entries)
+    for lo in range(0, nrows, rows_max):
+        v0 = embed(_take_rows(entries, lo, min(nrows, lo + rows_max),
+                              device))
+        yield lo, tridiag(large.apply_large_real_flat_batched, v0, nlanc,
+                          op=dev, dtype=gf_dtype)
+        del v0
+
+
+def _take_rows(entries, lo: int, hi: int, device) -> torch.Tensor:
+    """Rows lo..hi of the concatenated injection batch, as one tensor on
+    ``device`` (host entries are copied over)."""
+    parts, i0 = [], 0
+    for src, meta in entries:
+        a, b = max(lo, i0) - i0, min(hi, i0 + len(meta)) - i0
+        if a < b:
+            part = src.take(a, b) if isinstance(src, _Injections) \
+                else src[a:b]
+            parts.append(torch.as_tensor(part).to(device))
+        i0 += len(meta)
+    if any(p.is_complex() for p in parts):
+        parts = [p.to(torch.complex128) for p in parts]
+    return torch.cat(parts)
 
 
 def evaluate_gf_nnn(spec: GFSpectrum, cfg: EDConfig,
@@ -361,6 +471,9 @@ def build_gf_and_sigma(cfg: EDConfig, hb: BathBasis, bath: DmftBath,
         if real_h:
             def _vec_is_real(st):
                 v = st.get_vector(cfg.ns)
+                if isinstance(v, torch.Tensor):     # reduced on the card
+                    return not v.is_complex() or float(
+                        v.imag.abs().max()) == 0.0
                 return (not np.iscomplexobj(v)
                         or np.abs(v.imag).max(initial=0) == 0)
             force_sym = all(_vec_is_real(st) for st in state.state_list)

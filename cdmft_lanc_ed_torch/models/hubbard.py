@@ -81,3 +81,21 @@ def square_cluster_hk(nx: int, ny: int, nk: int, ts: float = 1.0,
                         h[b, a, s, s, o, o] += -ts * np.conj(ph)
         hks.append(nnn2lso(h, nlat, nspin, norb))
     return np.stack(hks), hloc
+
+
+def plaquette_replica_bath(nbath: int = 3, v: float = 0.5):
+    """The Ns = 4 + 4·nbath plaquette of the JAX package's large-sector
+    benchmark (its ``__graft_entry__._plaquette_bath_op``; at nbath=3 the
+    Ns=16 flagship of the reference's ED_SETUP.f90:139-154) as a replica
+    bath: hopping -1 on the four bonds of the 2x2 plaquette, bath levels
+    lambda_b = -1 + 2b/(nbath-1) times delta_ij, and V = ``v`` on every
+    site and bath.  Returns (hloc nnn, basis [1, 4,4,1,1,1,1],
+    lambdas [nbath, 1], V [nbath, 4]) for ``EDSolver.set_hbath`` and
+    ``bath.DmftBath``."""
+    hloc = square_cluster_hloc(2, 2)
+    basis = np.zeros((1, 4, 4, 1, 1, 1, 1), np.complex128)
+    for i in range(4):
+        basis[0, i, i, 0, 0, 0, 0] = 1.0
+    lam = np.array([[-1.0 + 2.0 * b / max(nbath - 1, 1)]
+                    for b in range(nbath)])
+    return hloc, basis, lam, np.full((nbath, 4), v)

@@ -1,9 +1,12 @@
 """Observables: thermal averages, energies, density matrices.
 
-Port of the host path of the JAX package's ``observables.py`` (itself a
-re-implementation of the reference's ED_OBSERVABLES.f90).  The retained
-eigenvectors of the dense-factor kit live on the host, so these are host
-numpy reductions, as in the JAX package.  All
+Port of the JAX package's ``observables.py`` (itself a re-implementation
+of the reference's ED_OBSERVABLES.f90).  The retained eigenvectors of the
+dense-factor kit live on the host, so those states take host numpy
+reductions, as in the JAX package; a large-sector state stays on the card
+and takes the device contractions of :mod:`.observables_device` (the JAX
+package's observables.py:140-170, :255-329), of which only Nimp-sized
+results reach the host.  All
 quantities are **vectorised reductions** over the sector basis instead of the
 reference's per-Fock-state loops (ED_OBSERVABLES.f90:146-236):
 
@@ -21,7 +24,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
+from . import observables_device as obsdev
 from .config import EDConfig
 from .diag import DiagState
 from .utils import fock
@@ -54,6 +59,36 @@ def _prob_and_occs(cfg: EDConfig, st, ns: int):
     return v2d, prob, n_up, n_dw, states_up, states_dw
 
 
+def _device_occs(cfg: EDConfig, st, ns: int):
+    """(vec, shape2d, n_up, n_dw, states_up, states_dw) of a state kept
+    on the card, or None for a host state."""
+    vec = st.get_vector(ns)
+    if not isinstance(vec, torch.Tensor):
+        return None
+    nup, ndw = fock.get_quantum_numbers(st.isector, ns)
+    states_up = fock.sector_states(ns, nup)
+    states_dw = fock.sector_states(ns, ndw)
+    n_up = fock.number_op(states_up, np.arange(cfg.nimp))
+    n_dw = fock.number_op(states_dw, np.arange(cfg.nimp))
+    return (vec, (len(states_dw), len(states_up)), n_up, n_dw, states_up,
+            states_dw)
+
+
+def _device_reductions(cfg: EDConfig, dstate, with_sz: bool):
+    """obsdev.density_reductions of a device state; the S_z tables are
+    zeros unless ``with_sz``."""
+    vec, shape2d, n_up, n_dw, _, _ = dstate
+    site = np.repeat(np.arange(cfg.nlat), cfg.norb)
+    sz_up = np.zeros((shape2d[1], cfg.nlat))
+    sz_dw = np.zeros((shape2d[0], cfg.nlat))
+    if with_sz:
+        for a in range(cfg.nimp):
+            sz_up[:, site[a]] += 0.5 * n_up[:, a]
+            sz_dw[:, site[a]] -= 0.5 * n_dw[:, a]
+    return obsdev.density_reductions(vec.reshape(shape2d), n_up, n_dw,
+                                     sz_up, sz_dw)
+
+
 # ---------------------------------------------------------------------------
 # local observables (lanc_observables, ED_OBSERVABLES.f90:94-236)
 # ---------------------------------------------------------------------------
@@ -81,6 +116,17 @@ def observables_impurity(cfg: EDConfig, state: DiagState) -> Observables:
 
     site = np.repeat(np.arange(nlat), norb)
     for st, peso in _state_weights(cfg, state):
+        dstate = _device_occs(cfg, st, ns)
+        if dstate is not None:
+            pu, pd, cross, uu, dd, s2 = _device_reductions(cfg, dstate,
+                                                           True)
+            dens_up += peso * pu
+            dens_dw += peso * pd
+            docc += peso * np.diag(cross)
+            nn += peso * (uu + dd + cross + cross.T)
+            szsz += peso * 0.25 * (uu + dd - cross - cross.T)
+            s2tot += peso * s2
+            continue
         _, prob, n_up, n_dw, _, _ = _prob_and_occs(cfg, st, ns)
         pu = prob.sum(axis=0) @ n_up          # [Nimp] sum_i P n_up
         pd = prob.sum(axis=1) @ n_dw
@@ -159,13 +205,21 @@ def local_energy_impurity(cfg: EDConfig, imp_hloc: np.ndarray,
         return terms
 
     for st, peso in _state_weights(cfg, state):
-        v2d, prob, n_up, n_dw, states_up, states_dw = \
-            _prob_and_occs(cfg, st, ns)
-        pu = prob.sum(axis=0) @ n_up
-        pd = prob.sum(axis=1) @ n_dw
-        cross = n_dw.T @ prob @ n_up
-        uu = n_up.T @ np.diag(prob.sum(axis=0)) @ n_up
-        dd = n_dw.T @ np.diag(prob.sum(axis=1)) @ n_dw
+        dstate = _device_occs(cfg, st, ns)
+        if dstate is not None:
+            # densities from the device reductions, hop terms (below)
+            # from device index-gather contractions
+            vec, shape2d, _, _, states_up, states_dw = dstate
+            pu, pd, cross, uu, dd, _ = _device_reductions(cfg, dstate,
+                                                          False)
+        else:
+            v2d, prob, n_up, n_dw, states_up, states_dw = \
+                _prob_and_occs(cfg, st, ns)
+            pu = prob.sum(axis=0) @ n_up
+            pd = prob.sum(axis=1) @ n_dw
+            cross = n_dw.T @ prob @ n_up
+            uu = n_up.T @ np.diag(prob.sum(axis=0)) @ n_up
+            dd = n_dw.T @ np.diag(prob.sum(axis=1)) @ n_dw
 
         # one-body diagonal (ED_OBSERVABLES.f90:303-310)
         for il in range(nlat):
@@ -178,7 +232,14 @@ def local_energy_impurity(cfg: EDConfig, imp_hloc: np.ndarray,
         # (ED_OBSERVABLES.f90:311-348)
         for s, (states, apply_axis) in enumerate(
                 ((states_up, 1), (states_dw, 0))):
-            for a, b, amp in hop_terms(0 if s == 0 else s_dw):
+            terms = hop_terms(0 if s == 0 else s_dw)
+            if dstate is not None:
+                if terms:
+                    vals = obsdev.hop_sums_device(vec, shape2d, terms,
+                                                  states, apply_axis)
+                    out.eknot += peso * float(np.sum(vals).real)
+                continue
+            for a, b, amp in terms:
                 rows, cols, signs = fock.hop_entries(states, a, b)
                 if apply_axis == 1:   # up factor: columns of v2d
                     contrib = (v2d[:, cols] * signs *
@@ -248,6 +309,12 @@ def cluster_density_matrix(cfg: EDConfig, state: DiagState) -> np.ndarray:
         states_up = fock.sector_states(ns, nup)
         states_dw = fock.sector_states(ns, ndw)
         vec = st.get_vector(ns)
+        if isinstance(vec, torch.Tensor):
+            # device state: the bath trace on the card
+            rho += peso * obsdev.cluster_dm_device(
+                vec, (len(states_dw), len(states_up)), nimp, states_up,
+                states_dw)
+            continue
         v2d = np.asarray(vec).reshape(len(states_dw),
                                       len(states_up))
         imp_up = (states_up & mask).astype(np.int64)
@@ -289,6 +356,27 @@ def single_particle_density_matrix(cfg: EDConfig,
     out = np.zeros((nlat, nlat, nspin, nspin, norb, norb), np.complex128)
 
     for st, peso in _state_weights(cfg, state):
+        dstate = _device_occs(cfg, st, ns)
+        if dstate is not None:
+            # diagonal from the device densities, off-diagonals from one
+            # device hop contraction per spin factor
+            vec, shape2d, _, _, states_up, states_dw = dstate
+            pu, pd = _device_reductions(cfg, dstate, False)[:2]
+            pairs = [(a, b) for a in range(nimp) for b in range(nimp)
+                     if a != b]
+            for s in range(nspin):
+                vals = obsdev.hop_sums_device(
+                    vec, shape2d, [(a, b, 1.0) for a, b in pairs],
+                    states_up if s == 0 else states_dw, 1 if s == 0 else 0)
+                for a in range(nimp):
+                    ila, ioa = divmod(a, norb)
+                    out[ila, ila, s, s, ioa, ioa] += \
+                        peso * (pu if s == 0 else pd)[a]
+                for (a, b), val in zip(pairs, vals):
+                    ila, ioa = divmod(a, norb)
+                    ilb, iob = divmod(b, norb)
+                    out[ila, ilb, s, s, ioa, iob] += peso * val
+            continue
         v2d, prob, n_up, n_dw, states_up, states_dw = \
             _prob_and_occs(cfg, st, ns)
         for s in range(nspin):

@@ -73,16 +73,23 @@ def _complex_v0(v0, shape, seed: int) -> np.ndarray:
 # plain Lanczos tridiagonalisation (no reorthogonalisation): GF resolvent
 # ---------------------------------------------------------------------------
 
-def _tridiag(apply_fn, v0: np.ndarray, niter: int, op, dtype):
+def _tridiag(apply_fn, v0, niter: int, op, dtype):
     """Plain Lanczos chains of one operator from B start vectors ``v0``
-    [B, dim] (host) in ``dtype``.  Returns host (alphas [B, niter],
-    betas [B, niter-1], norms [B])."""
+    [B, dim] (host array, or a tensor on the operator's device: the
+    large-sector injections) in ``dtype``.  Returns host (alphas
+    [B, niter], betas [B, niter-1], norms [B])."""
     device = _device_of(op)
-    v0 = np.asarray(v0)
-    norms0 = np.linalg.norm(v0, axis=1)
-    scale = np.where(norms0 > 1e-300, norms0, 1.0)
-    v = torch.as_tensor(np.ascontiguousarray(v0 / scale[:, None])).to(
-        device=device, dtype=dtype)
+    if isinstance(v0, torch.Tensor):
+        nrm = torch.linalg.vector_norm(v0, dim=1)
+        norms0 = nrm.cpu().numpy()
+        v = (v0 / torch.where(nrm > 1e-300, nrm, 1.0)[:, None]).to(
+            device=device, dtype=dtype)
+    else:
+        v0 = np.asarray(v0)
+        norms0 = np.linalg.norm(v0, axis=1)
+        scale = np.where(norms0 > 1e-300, norms0, 1.0)
+        v = torch.as_tensor(np.ascontiguousarray(v0 / scale[:, None])).to(
+            device=device, dtype=dtype)
     nb = v.shape[0]
     rdtype = real_dtype(dtype)
     p = torch.zeros_like(v)
@@ -107,17 +114,24 @@ def _tridiag(apply_fn, v0: np.ndarray, niter: int, op, dtype):
 def lanczos_tridiag_batched_real(apply_fn, v0: np.ndarray, niter: int,
                                  op, dtype=torch.float64):
     """Batched tridiagonalisation for a REAL symmetric operator shared by
-    B REAL start vectors ``v0`` [B, dim] (host array).  Returns host
-    (alphas [B, niter], betas [B, niter-1], norms [B])."""
+    B REAL start vectors ``v0`` [B, dim] (host array or device tensor).
+    Returns host (alphas [B, niter], betas [B, niter-1], norms [B])."""
+    if isinstance(v0, torch.Tensor):
+        return _tridiag(apply_fn, v0.real if v0.is_complex() else v0,
+                        niter, op, dtype)
     return _tridiag(apply_fn, np.real(np.asarray(v0)), niter, op, dtype)
 
 
 def lanczos_tridiag_batched_split(apply_fn, v0: np.ndarray, niter: int,
                                   op, dtype=torch.complex128):
     """Batched tridiagonalisation for a complex Hermitian operator shared
-    by B start vectors ``v0`` [B, dim] (host, real or complex), in
-    complex128 or (``dtype`` complex64 / float32) on the complex kernel.
-    Returns the host arrays of :func:`lanczos_tridiag_batched_real`."""
+    by B start vectors ``v0`` [B, dim] (host or device, real or complex),
+    in complex128 or (``dtype`` complex64 / float32) on the complex
+    kernel.  Returns the host arrays of
+    :func:`lanczos_tridiag_batched_real`."""
+    if isinstance(v0, torch.Tensor):
+        return _tridiag(apply_fn, v0.to(torch.complex128), niter, op,
+                        complex_dtype(dtype))
     return _tridiag(apply_fn, np.asarray(v0, np.complex128), niter, op,
                     complex_dtype(dtype))
 
@@ -220,10 +234,16 @@ def _expand(apply_fn, op, b: torch.Tensor, k: int):
 
 def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
                    maxiter: int, tol: float, dtype: torch.dtype,
-                   device: torch.device):
+                   device: torch.device, op16=None):
     """Shared batched thick-restart loop (one restart schedule for all B
     members).  Returns (theta [B, ncv], s [B, ncv, ncv], conv [B],
-    rel [B, neigen], nmv, basis)."""
+    rel [B, neigen], nmv, basis).
+
+    ``op16``: a bf16-tile build of the operator for a COARSE first stage
+    (the JAX package's lanczos.py:583-596): restarts run on it until the
+    worst wanted residual is below 3e-3, the stage stalls or it reaches
+    ``maxiter // 2``, then the basis passes to ``op``.  Ritz data of the
+    coarse stage is never accepted."""
     nb, dim = v0.shape
     basis = torch.zeros(nb, ncv + 1, dim, dtype=dtype, device=device)
     basis[:, 0] = torch.as_tensor(v0).to(device=device, dtype=dtype)
@@ -232,9 +252,10 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
     k = 0
     nmv = 0
     stall = _StallGuard()
+    coarse = op16 is not None
     kfix = min(neigen + max(neigen, (ncv - neigen) // 2), ncv - 1)
     while True:
-        cs_d, betas_d = _expand(apply_fn, op, basis, k)
+        cs_d, betas_d = _expand(apply_fn, op16 if coarse else op, basis, k)
         cs = cs_d.cpu().numpy()                     # [ncv, B, ncv]
         betas_np = betas_d.cpu().numpy()            # [ncv, B]
         for j in range(k, ncv):
@@ -249,8 +270,16 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
         resid = np.abs(last_beta[:, None] * s[:, -1, :])
         rel = resid[:, :neigen] / np.maximum(np.abs(theta[:, :neigen]), 1.0)
         conv = np.all(rel <= tol, axis=1)
+        if coarse and (float(rel.max()) < 3e-3
+                       or stall.stalled(float(rel.max()))
+                       or nmv >= maxiter // 2):
+            coarse = False                  # bf16 resolution reached
+            op16 = None
+            stall = _StallGuard()
+        if coarse:
+            conv = np.zeros_like(conv)
         if bool(conv.all()) or nmv >= maxiter or ncv >= dim \
-                or stall.stalled(float(rel.max())):
+                or (not coarse and stall.stalled(float(rel.max()))):
             return theta, s, conv, rel, nmv, basis
         k = kfix
         # restart on the device: the kept Ritz vectors, then the residual
@@ -268,21 +297,37 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
         t_proj[:, :k, k] = b_row.conj()
 
 
+# f64 copy of the Krylov basis above which the Ritz rotation runs in
+# column chunks (at Ns=16 the whole copy would be 28 GB)
+_RITZ_CHUNK_BYTES = 1 << 30
+
+
 def _ritz_vectors(basis: torch.Tensor, s: np.ndarray, neigen: int
                   ) -> torch.Tensor:
     """Normalised f64 (float64 or complex128) Ritz vectors
     [B, neigen, dim] on the device."""
-    ncv = s.shape[1]
+    nb, ncv = s.shape[0], s.shape[1]
     hi = _hi(basis.dtype)
     sj = torch.as_tensor(np.ascontiguousarray(
         s[:, :, :neigen].transpose(0, 2, 1))).to(basis.device, hi)
-    vecs = torch.bmm(sj, basis[:, :ncv].to(hi))
+    dim = basis.shape[2]
+    copy_bytes = nb * ncv * dim * _itemsize(hi)
+    if basis.dtype == hi or copy_bytes <= _RITZ_CHUNK_BYTES:
+        vecs = torch.bmm(sj, basis[:, :ncv].to(hi))
+    else:
+        vecs = torch.empty(nb, sj.shape[1], dim, dtype=hi,
+                           device=basis.device)
+        step = max(1, dim * _RITZ_CHUNK_BYTES // copy_bytes)
+        for c0 in range(0, dim, step):
+            vecs[:, :, c0:c0 + step] = torch.bmm(
+                sj, basis[:, :ncv, c0:c0 + step].to(hi))
     nrm = torch.linalg.vector_norm(vecs, dim=2, keepdim=True)
     return vecs / nrm.clamp_min(1e-300)
 
 
 def _eigh(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
-          maxiter: int, tol: float, dtype, device_vectors: bool):
+          maxiter: int, tol: float, dtype, device_vectors: bool,
+          op16=None):
     """Thick-restart solve of B = len(v0) operators (one batched matvec
     [B, dim] -> [B, dim]) from normalised host start rows ``v0`` [B, dim].
     Returns B EighResults."""
@@ -292,8 +337,10 @@ def _eigh(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
     eps = _eps(dtype)
     tol = max(tol, eps)
     theta, s, conv, rel, nmv, basis = _thick_restart(
-        apply_fn, op, v0, neigen, ncv, maxiter, tol, dtype, _device_of(op))
+        apply_fn, op, v0, neigen, ncv, maxiter, tol, dtype, _device_of(op),
+        op16=op16)
     vecs = _ritz_vectors(basis, s, neigen)
+    del basis
     if not device_vectors:
         vecs = vecs.cpu().numpy()
     return [EighResult(theta[i, :neigen].copy(), vecs[i], nmv,
@@ -322,31 +369,37 @@ def lanczos_eigh_real(apply_fn, dim: int, neigen: int, ncv: int,
                       maxiter: int = 512, tol: float = 1e-14,
                       v0: Optional[np.ndarray] = None, seed: int = 8527,
                       dtype=torch.float64, op=None,
-                      device_vectors: bool = False) -> EighResult:
+                      device_vectors: bool = False,
+                      op16=None) -> EighResult:
     """Thick-restart Lanczos for a REAL symmetric operator with a real
     start vector: the whole Krylov iteration stays real.  ``dtype=
     torch.float32`` runs basis, matvec and CGS2 in f32 (the Krylov stage
-    of the mixed scheme).  Eigenvectors come back as host float64 arrays
-    [neigen, dim], or as a device tensor with ``device_vectors``."""
+    of the mixed scheme), optionally after a bf16-tile coarse stage on
+    ``op16`` (:func:`_thick_restart`).  Eigenvectors come back as host
+    float64 arrays [neigen, dim], or as a device tensor with
+    ``device_vectors``."""
     if v0 is None:
         v0 = np.random.default_rng(seed).normal(size=dim)
     return _eigh(_one_member(apply_fn), op, _unit(np.real(np.asarray(v0))),
-                 neigen, ncv, maxiter, tol, dtype, device_vectors)[0]
+                 neigen, ncv, maxiter, tol, dtype, device_vectors,
+                 op16=op16)[0]
 
 
 def lanczos_eigh_split(apply_fn, dim: int, neigen: int, ncv: int,
                        maxiter: int = 512, tol: float = 1e-14,
                        v0: Optional[np.ndarray] = None, seed: int = 8527,
                        dtype=torch.complex128, op=None,
-                       device_vectors: bool = False) -> EighResult:
+                       device_vectors: bool = False,
+                       op16=None) -> EighResult:
     """Thick-restart Lanczos for a complex Hermitian operator (the JAX
     package's split-plane solver on complex tensors).  ``dtype``
     complex64 (or float32) runs the Krylov stage of the mixed scheme on
-    the complex kernel.  Eigenvectors come back as host complex128 arrays
-    [neigen, dim], or as a device tensor with ``device_vectors``."""
+    the complex kernel; ``op16`` a coarse stage as in
+    :func:`lanczos_eigh_real`.  Eigenvectors come back as host complex128
+    arrays [neigen, dim], or as a device tensor with ``device_vectors``."""
     return _eigh(_one_member(apply_fn), op,
                  _unit(_complex_v0(v0, (dim,), seed)), neigen, ncv, maxiter,
-                 tol, complex_dtype(dtype), device_vectors)[0]
+                 tol, complex_dtype(dtype), device_vectors, op16=op16)[0]
 
 
 def lanczos_eigh_real_batched(apply_fn, nbatch: int, dim: int,
@@ -418,10 +471,15 @@ def rayleigh_refine_real(matvec64, vecs: torch.Tensor, neigen: int,
     until their residuals meet ``rtol*max(|theta|,1)`` or ``max_expand``
     rounds.  ``matvec64`` maps rows [m, dim] -> [m, dim] in float64, or in
     complex128 for complex rows (then it is the JAX package's
-    ``rayleigh_refine_split_device``).  Returns host theta [neigen],
-    device vectors [neigen, dim], host resid [neigen]."""
+    ``rayleigh_refine_split_device``).  The basis grows to at most 96
+    columns, and to what a quarter of the device memory holds in three
+    f64 blocks (q, H·q and a copy) of that width: at Ns=16 a few columns.
+    Returns host theta [neigen], device vectors [neigen, dim], host resid
+    [neigen]."""
     dim = vecs.shape[1]
     q, _ = torch.linalg.qr(vecs.to(_hi(vecs.dtype)).T)
+    k_cap = max(q.shape[1], min(96, dim, budget_bytes(vecs.device, 0.25)
+                                // (3 * _itemsize(q.dtype) * dim)))
 
     def hcols(cols):
         return matvec64(cols.T.contiguous()).T
@@ -441,7 +499,7 @@ def rayleigh_refine_real(matvec64, vecs: torch.Tensor, neigen: int,
         done = (rtol is None or np.all(
             resid[:neigen] <= rtol * np.maximum(np.abs(theta[:neigen]),
                                                 1.0)))
-        if done or it == max_expand or q.shape[1] + neigen > min(dim, 96):
+        if done or it == max_expand or q.shape[1] + neigen > k_cap:
             break
         r = wmix[:, :neigen] - new_vecs[:, :neigen] * th_d[None, :neigen]
         qn = _orth_expand_block(q, r, np.random.default_rng(8527 + it))
@@ -554,15 +612,16 @@ def rayleigh_refine_real_batched(apply_fn, vecs: torch.Tensor, neigen: int,
 f64_fallbacks = 0
 
 def _mixed(eigh, apply32, apply64, dim, neigen, ncv, maxiter, tol, v0,
-           seed, op32, op64, vec_rtol, lo, hi) -> EighResult:
+           seed, op32, op64, vec_rtol, lo, hi, op16=None,
+           device_vectors=False) -> EighResult:
     """The serial mixed scheme over ``eigh`` (lanczos_eigh_real or
     lanczos_eigh_split) at the Krylov dtype ``lo`` and the f64 dtype
-    ``hi``."""
+    ``hi``, with an optional bf16 coarse stage on ``op16``."""
     f32_tol = max(tol, 2e-6)
     res32 = eigh(apply32, dim, neigen=neigen, ncv=ncv, maxiter=maxiter,
                  tol=f32_tol, v0=v0, seed=seed, dtype=lo, op=op32,
-                 device_vectors=True)
-    op32 = None
+                 device_vectors=True, op16=op16)
+    op32 = op16 = None
     if callable(op64):
         op64 = op64()
     rtol = _mixed_vec_rtol(vec_rtol)
@@ -571,16 +630,19 @@ def _mixed(eigh, apply32, apply64, dim, neigen, ncv, maxiter, tol, v0,
         rtol=rtol, max_expand=16)
     nmv = res32.iterations + len(res32.eigenvectors)
     if np.all(resid <= rtol * np.maximum(np.abs(theta), 1.0)):
-        return EighResult(theta, vecs.cpu().numpy(), nmv, True)
+        return EighResult(theta, vecs if device_vectors
+                          else vecs.cpu().numpy(), nmv, True)
     # full-f64 polish at the caller's tolerance; ncv shrinks to what an
     # f64 basis can afford
     global f64_fallbacks
     f64_fallbacks += 1
     ncv_fb = min(ncv, max(neigen + 2, int(budget_bytes(
         _device_of(op64), 0.33) / (dim * _itemsize(hi))) - 1))
+    v0_64 = vecs[0].cpu().numpy()
+    del vecs
     res64 = eigh(apply64, dim, neigen=neigen, ncv=ncv_fb, maxiter=maxiter,
-                 tol=max(tol, _f64_dot_floor()),
-                 v0=vecs[0].cpu().numpy(), seed=seed, dtype=hi, op=op64)
+                 tol=max(tol, _f64_dot_floor()), v0=v0_64, seed=seed,
+                 dtype=hi, op=op64, device_vectors=device_vectors)
     return EighResult(res64.eigenvalues, res64.eigenvectors,
                       nmv + res64.iterations, res64.converged)
 
@@ -590,28 +652,36 @@ def lanczos_eigh_mixed_real(apply32, apply64, dim: int,
                             tol: float = 1e-14,
                             v0: Optional[np.ndarray] = None,
                             seed: int = 8527, op32=None, op64=None,
-                            vec_rtol: Optional[float] = None) -> EighResult:
+                            vec_rtol: Optional[float] = None, op16=None,
+                            device_vectors: bool = False) -> EighResult:
     """Mixed-precision real eigensolver: an f32 thick-restart Krylov stage
-    (the fused CUDA H·v on the card), its Ritz vectors refined in f64 by
-    Rayleigh-Ritz with residual expansion, and a full-f64 thick-restart
-    solve (warm-started) when the refine misses ``vec_rtol``.  ``op64``
-    may be a zero-argument callable, built only after the f32 stage."""
+    (the fused CUDA H·v on the card, or the block-sparse kernel for large
+    sectors, after an optional bf16 coarse stage on ``op16``), its Ritz
+    vectors refined in f64 by Rayleigh-Ritz with residual expansion, and
+    a full-f64 thick-restart solve (warm-started) when the refine misses
+    ``vec_rtol``.  ``op64`` may be a zero-argument callable, built only
+    after the f32 stage.  ``device_vectors`` keeps the eigenvectors on the
+    device (large sectors)."""
     return _mixed(lanczos_eigh_real, apply32, apply64, dim, neigen, ncv,
                   maxiter, tol, v0, seed, op32, op64, vec_rtol,
-                  torch.float32, torch.float64)
+                  torch.float32, torch.float64, op16=op16,
+                  device_vectors=device_vectors)
 
 
 def lanczos_eigh_mixed(apply32, apply64, dim: int, neigen: int, ncv: int,
                        maxiter: int = 512, tol: float = 1e-14,
                        v0: Optional[np.ndarray] = None, seed: int = 8527,
                        op32=None, op64=None,
-                       vec_rtol: Optional[float] = None) -> EighResult:
+                       vec_rtol: Optional[float] = None, op16=None,
+                       device_vectors: bool = False) -> EighResult:
     """Mixed-precision complex eigensolver: the complex64 Krylov stage on
-    the fused complex CUDA kernel, the complex128 refine, and the
-    complex128 fallback of :func:`lanczos_eigh_mixed_real`."""
+    the fused complex CUDA kernel (or the block-sparse kernel), the
+    complex128 refine, and the complex128 fallback of
+    :func:`lanczos_eigh_mixed_real`."""
     return _mixed(lanczos_eigh_split, apply32, apply64, dim, neigen, ncv,
                   maxiter, tol, v0, seed, op32, op64, vec_rtol,
-                  torch.complex64, torch.complex128)
+                  torch.complex64, torch.complex128, op16=op16,
+                  device_vectors=device_vectors)
 
 
 def _mixed_batched(eigh_b, apply32, apply64, nbatch, dim, neigen, ncv,

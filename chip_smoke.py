@@ -14,6 +14,14 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  also reports the error of the plain version on inputs
                  rounded to TF32 (a control: what a TF32 kernel would
                  show).
+3b. large_kernel - the block-sparse SpMM kernel in every instantiation
+                 (f32, bf16, f64, complex64, complex128) against its plain
+                 version: both sides of the Ns=16 flagship's (8,8) factors
+                 at n = 12,928, one GF-width call (4 injections folded
+                 into n), one side of a complex Ns=16 factor (the BHZ
+                 chain with 3 general baths) and a tiny factor with an
+                 empty band and a ragged n; timed beside its bound, its
+                 plain version and cuSPARSE (torch.sparse.mm).
 4. plaquette   - bath-less U=4 half-filled 2x2 plaquette: EGS
                  -6.1027484835, dens 1, docc ~0.0718.
 5. loop        - the metric-2 CDMFT loop (2x2 plaquette + 2 replica baths,
@@ -33,6 +41,14 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  iterations ("mixed", wmixing 0.5): finite, time reversal
                  kept, complex kernel launches > 0; wall and stage times
                  per iteration.
+7b. large_solve - one EDSolver.solve of the Ns=16 flagship (2x2 plaquette
+                 + 3 replica baths, U=4, mixed, f64 GF chains, lmats 256,
+                 T=0), the sweep cut to the (8,8) sector (dim 1.66e8) by
+                 ed_sectors and a sectors_list.restart: E0 within 1e-7 of
+                 -16.2728081424, density 1 per site, C4-symmetric G(iw),
+                 Im G < 0, finite Sigma, block-sparse launches > 0; the f64
+                 residual, stage times, f64 re-solves, matvecs per
+                 precision and peak device memory.
 8. kernels     - one line listing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
@@ -46,6 +62,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -397,11 +414,11 @@ BHZ_MODEL = dict(mh=1.0, ts=0.25, lam=0.3)
 TR_TOL = 5e-5
 
 
-def bhz_setup(workdir, prec, verbose=0):
+def bhz_setup(workdir, prec, verbose=0, nbath=BHZ_CFG["nbath"]):
     from cdmft_lanc_ed_torch import EDConfig, EDSolver
     from cdmft_lanc_ed_torch.models.bhz import bhz_bath_basis, bhz_chain_hk
-    cfg = EDConfig(**BHZ_CFG, ed_precision=prec, ed_verbose=verbose,
-                   work_dir=workdir)
+    cfg = EDConfig(**dict(BHZ_CFG, nbath=nbath), ed_precision=prec,
+                   ed_verbose=verbose, work_dir=workdir)
     hk, hloc = bhz_chain_hk(2, 1, 32, **BHZ_MODEL)
     solver = EDSolver(cfg)
     basis, lam0 = bhz_bath_basis(2, 1, **BHZ_MODEL)
@@ -513,6 +530,287 @@ def phase_bhz_loop(workdir, loops, profile=False):
     return pair_launches
 
 
+# ---------------------------------------------------------------------------
+# Ns >= 16: the block-sparse kernel and the flagship solve
+# ---------------------------------------------------------------------------
+
+# The Ns=16 flagship: the 2x2 plaquette with 3 replica baths (the
+# reference's ED_SETUP.f90:139-154; the JAX package's LARGE_BENCH_r05 and
+# __graft_entry__._plaquette_bath_op(3, 8, 8)), U=4, V=0.5, bath levels
+# -1, 0, 1.  E0 of its half-filled (8,8) sector from an f64 Rayleigh
+# quotient on the TPU (LARGE_BENCH_r05; its two runs agree to 3e-9).
+E0_NS16 = -16.2728081424
+E0_NS16_TOL = 1e-7
+NS16_CFG = dict(nlat=4, norb=1, nspin=1, nbath=3, uloc=[4.0], lmats=256,
+                lreal=32)
+NS16_SECTOR = (8, 8)          # half filling: dim C(16,8)^2 = 1.66e8
+# f64 GF chains: f32 chains ("single") break the C4 symmetry of G(iw)
+# beyond 1e-5 (measured on the CPU at the same cut: 8.4e-7 at Ns=8,
+# 1.9e-5 at Ns=12, against 2e-14 in f64), and 80 GB hold f64 chains
+NS16_GF_PRECISION = "double"
+# H100 data-sheet peaks (dense, SXM) beside PEAKS: bf16 on the tensor
+# cores, FP64 outside them; complex types take their real type's peak.
+PEAK_BF16, PEAK_F64 = 989e12, 34e12
+# max|kernel - plain| <= tol * max|plain| per instantiation.  f32 and
+# complex64: the fused kernels' bound, and a tenth of the TF32 control.
+# bf16: the plain version runs in f32 on the same bf16 inputs, whose
+# products are exact in f32, so only the order of the sums differs.
+BLK_TOL = {"f32": 2e-4, "bf16": 1e-5, "f64": 1e-12, "c64": 2e-4,
+           "c128": 1e-12}
+BLK_TYPES = {"f32": "float32", "bf16": "bfloat16", "f64": "float64",
+             "c64": "complex64", "c128": "complex128"}
+
+
+def flagship_solver(workdir, **kw):
+    """(EDSolver of the Ns=16 flagship, the packed bath array of its
+    published bath, hloc)."""
+    from cdmft_lanc_ed_torch import EDConfig, EDSolver
+    from cdmft_lanc_ed_torch.bath import DmftBath, pack_dmft_bath
+    from cdmft_lanc_ed_torch.models.hubbard import plaquette_replica_bath
+    hloc, basis, lam, v = plaquette_replica_bath(NS16_CFG["nbath"])
+    cfg = EDConfig(**NS16_CFG, work_dir=workdir, **kw)
+    solver = EDSolver(cfg)
+    solver.set_hbath(basis, lam)
+    solver.init_solver()
+    return solver, pack_dmft_bath(cfg, DmftBath(v=v, lam=lam)), hloc
+
+
+def sector_op(solver, bath, hloc, nup, ndw):
+    """The (nup, ndw) sector operator of ``solver`` at ``bath``."""
+    from cdmft_lanc_ed_torch.bath import unpack_dmft_bath
+    solver.bath = unpack_dmft_bath(solver.cfg, bath)
+    solver.imp_hloc = np.asarray(hloc, np.complex128)
+    return solver._sector_builder()(nup, ndw)
+
+
+def blk_cost(tiles, x, nb_out, nnz, kind, peaks):
+    """(bound ms, bound_by, operations, bytes, padded tile FLOPs) of one
+    block-sparse SpMM on ``x`` [m, n]: 2·nnz·n real operations (8 for a
+    complex multiply-add) over the type's peak, and the tiles, x and y
+    each moved once (bf16 x and f32 y for bf16 tiles) over HBM
+    bandwidth."""
+    n = x.shape[1]
+    per = 8.0 if tiles.is_complex() else 2.0
+    ops = per * nnz * n
+    x_item = 2 if kind == "bf16" else x.element_size()
+    y_item = 4 if kind == "bf16" else x.element_size()
+    nbytes = (tiles.element_size() * tiles.numel() + x_item * x.numel()
+              + y_item * nb_out * 128 * n)
+    peak = {"f32": peaks[0], "c64": peaks[0], "bf16": PEAK_BF16,
+            "f64": PEAK_F64, "c128": PEAK_F64}[kind]
+    t_ops, t_bytes = ops / peak, nbytes / peaks[1]
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes,
+            per * tiles.shape[0] * 128 * 128 * n)
+
+
+def blk_case(name, kind, f, x_np, peaks, time_it):
+    """Check the kernel of instantiation ``kind`` on factor ``f`` (a
+    host BlockFactor) and operand ``x_np`` against its plain version;
+    with ``time_it`` also time it, the plain version and one cuSPARSE
+    SpMM of the same factor.  Returns the record."""
+    import torch
+    from cdmft_lanc_ed_torch.ops import large
+    dev = torch.device("cuda")
+    dt = getattr(torch, BLK_TYPES[kind])
+    tiles = torch.as_tensor(f.tiles).to(dev, dt)
+    x = torch.as_tensor(x_np).to(dev, torch.float32 if kind == "bf16"
+                                 else dt)
+    rb, cb = (torch.as_tensor(a).to(dev) for a in (f.row_blk, f.col_blk))
+    nb = f.nb
+    idx = large.tile_index(rb, nb)
+    y = large.blk_spmm(rb, cb, tiles, x, nb, index=idx)
+    torch.cuda.synchronize()
+    if kind == "bf16":
+        xb = x.to(torch.bfloat16)
+        plain_args = (rb, cb, tiles.float(), xb.float(), nb)
+    else:
+        plain_args = (rb, cb, tiles, x, nb)
+    ref = large.blk_spmm_ref(*plain_args)
+    err = float((y - ref).abs().max())
+    scale = float(ref.abs().max())
+    rec = {"case": name, "type": kind, "shape": [int(tiles.shape[0]),
+                                                 int(x.shape[0]),
+                                                 int(x.shape[1])],
+           "nnz": int(f.nnz), "max_abs_err": err, "max_abs_ref": scale,
+           "tolerance": BLK_TOL[kind]}
+    ok = bool(torch.isfinite(y).all()) and err <= BLK_TOL[kind] * scale
+    if kind in ("f32", "c64"):
+        # control: the plain version on inputs rounded to TF32
+        tf = large.blk_spmm_ref(rb, cb, tf32_round(tiles), tf32_round(x),
+                                nb)
+        rec["tf32_control_err"] = float((tf - ref).abs().max())
+        ok = ok and err <= 0.1 * rec["tf32_control_err"]
+    empty = np.setdiff1d(np.arange(nb), f.row_blk)
+    if len(empty):
+        # a row block without tiles comes out as zero
+        rec["empty_row_blocks"] = len(empty)
+        ok = ok and all(not bool(y[b * 128:(b + 1) * 128].any())
+                        for b in empty)
+    rec["ok"] = ok
+    if time_it and ok:
+        xk = xb if kind == "bf16" else x
+        bound, by, ops, nbytes, padded = blk_cost(tiles, xk, nb, f.nnz,
+                                                  kind, peaks)
+        rec.update(
+            ms=time_ms(lambda: large.blk_spmm(rb, cb, tiles, xk, nb,
+                                              index=idx)),
+            plain_ms=time_ms(lambda: large.blk_spmm_ref(*plain_args)),
+            bound_ms=bound, bound_by=by, operations=ops, bytes=nbytes,
+            padded_tile_flops=padded)
+        rec["library_ms"] = library_ms(f, kind, xk, dev)
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
+def library_ms(f, kind, x, dev):
+    """Time of one torch.sparse.mm (cuSPARSE SpMM) of the same factor as
+    a CSR tensor on the same operand, or None where cuSPARSE has no such
+    product (bf16)."""
+    import torch
+    if kind == "bf16":
+        return None
+    b = 128
+    tt, rr, cc = np.nonzero(f.tiles)
+    rows = f.row_blk[tt].astype(np.int64) * b + rr
+    cols = f.col_blk[tt].astype(np.int64) * b + cc
+    coo = torch.sparse_coo_tensor(
+        torch.as_tensor(np.stack([rows, cols])),
+        torch.as_tensor(f.tiles[tt, rr, cc]),
+        (f.nb * b, x.shape[0])).coalesce()
+    csr = coo.to_sparse_csr().to(dev, x.dtype)
+    return time_ms(lambda: torch.sparse.mm(csr, x))
+
+
+def phase_large_kernel(peaks):
+    """The block-sparse kernel against its plain version at the Ns=16
+    flagship's shapes (both sides of the (8,8) sector at n = 12,928, and
+    one GF-width call with 4 injections folded into n), one side of a
+    complex Ns=16 factor (the BHZ chain with 3 general baths), and a tiny
+    factor with an empty band and a ragged n."""
+    from cdmft_lanc_ed_torch.ops import large
+    from cdmft_lanc_ed_torch.ops.split import op_is_real
+    t0 = time.time()
+    rng = np.random.default_rng(2026)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+        op = sector_op(*flagship_solver(wd), *NS16_SECTOR)
+    fu = large.block_factor_of(op.h_up, real=True, dtype=np.float64)
+    fd = large.block_factor_of(op.h_dw, real=True, dtype=np.float64)
+    m = fd.nb * 128
+    records = []
+    x = rng.normal(size=(m, fu.nb * 128))
+    for kind in ("f32", "bf16", "f64"):
+        records.append(blk_case("ns16_dw", kind, fd, x, peaks, True))
+        records.append(blk_case("ns16_up", kind, fu,
+                                np.ascontiguousarray(x.T), peaks,
+                                kind == "f32"))
+    xg = rng.normal(size=(m, 4 * fu.nb * 128))
+    records.append(blk_case("ns16_dw_gf4", "f32", fd, xg, peaks, True))
+    del x, xg
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+        solver, bath, _, hloc = bhz_setup(wd, "mixed",
+                                          nbath=NS16_CFG["nbath"])
+        bop = sector_op(solver, bath, hloc, *NS16_SECTOR)
+    assert not op_is_real(bop)
+    fc = large.block_factor_of(bop.h_up, real=False)
+    nc = large.block_factor_of(bop.h_dw, real=False).nb * 128
+    xc = rng.normal(size=(fc.nb * 128, nc)) \
+        + 1j * rng.normal(size=(fc.nb * 128, nc))
+    for kind in ("c64", "c128"):
+        records.append(blk_case("bhz16_up", kind, fc, xc, peaks, True))
+    del xc
+    # tiny: rows only in the first of two output bands, ragged n
+    k = 4400
+    ft = large.block_factor_of_coo(
+        1100, rng.integers(0, 1024, size=k), rng.integers(0, 1100, size=k),
+        rng.normal(size=k) + 1j * rng.normal(size=k), False)
+    ftr = large.block_factor_of_coo(
+        1100, rng.integers(0, 1024, size=k), rng.integers(0, 1100, size=k),
+        rng.normal(size=k), True, np.float64)
+    xt = rng.normal(size=(ft.nb * 128, 77))
+    for kind in BLK_TOL:
+        cplx = kind in ("c64", "c128")
+        records.append(blk_case("tiny_empty_band", kind,
+                                ft if cplx else ftr,
+                                xt + 1j * xt[::-1] if cplx else xt,
+                                peaks, False))
+    ok = all(r["ok"] for r in records)
+    emit({"phase": "large_kernel", "seconds": time.time() - t0,
+          "tolerance": "max|kernel - plain| <= tol * max|plain| (tol per "
+                       "type); f32/complex64 also <= 0.1 * the TF32 "
+                       "control", "records": records})
+    if not ok:
+        fail("large_kernel", "a block-sparse kernel disagrees with its "
+                             "plain version")
+    return next(r for r in records if r["case"] == "ns16_dw"
+                and r["type"] == "f32")
+
+
+def phase_large_solve(workdir):
+    """One EDSolver.solve of the Ns=16 flagship, the sweep cut to its
+    (8,8) sector by the reference's own mechanism."""
+    import torch
+    from cdmft_lanc_ed_torch.ops import fused, large, lanczos
+    solver, bath, hloc = flagship_solver(
+        workdir, ed_precision="mixed", ed_gf_precision=NS16_GF_PRECISION,
+        ed_sectors=True, ed_sectors_shift=0, ed_verbose=3)
+    with open(f"{workdir}/sectors_list.restart", "w") as fh:
+        fh.write(" %d %d\n" % NS16_SECTOR)
+    fused.launches = fused.pair_launches = large.launches = 0
+    large.launches_by.clear()
+    lanczos.f64_fallbacks = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    solver.solve(bath, hloc)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = large.launches
+    by_type = dict(large.launches_by)
+    peak = torch.cuda.max_memory_allocated()
+    fallbacks = lanczos.f64_fallbacks
+    st = solver.diag_state.state_list[0]
+    # explicit f64 residual of the retained vector
+    op = sector_op(solver, bath, hloc, *NS16_SECTOR)
+    d64, _, embed, extract = large.build_real_padded_large(
+        op, dtype=torch.float64, device=torch.device("cuda"))
+    xv = st.get_vector(solver.cfg.ns)
+    hx = extract(large.apply_large_real_flat(d64, embed(xv)))
+    resid = float(torch.linalg.vector_norm(hx - solver.egs * xv)
+                  / torch.linalg.vector_norm(xv))
+    del d64, hx
+    dens = solver.dens().ravel()
+    gm = solver.gimp_matsubara()
+    sm = solver.sigma_matsubara()
+    gd = np.stack([gm[i, i, 0, 0, 0, 0] for i in range(4)])
+    c4 = float(np.abs(gd - gd[0]).max() / np.abs(gd).max())
+    checks = {
+        "egs_anchor": abs(solver.egs - E0_NS16) <= E0_NS16_TOL,
+        "density_1": bool(np.all(np.abs(dens - 1.0) <= 1e-7)),
+        "c4_symmetry": c4 <= 1e-5,
+        "im_g_negative": bool(np.all(gd.imag < 0)),
+        "sigma_finite": bool(np.isfinite(sm).all()),
+        "kernel_launched": launches > 0,
+        "vector_on_card": isinstance(xv, torch.Tensor) and xv.is_cuda}
+    emit({"phase": "large_solve", "sector": list(NS16_SECTOR),
+          "dim": int(op.dim), "egs": solver.egs, "egs_anchor": E0_NS16,
+          "egs_err": abs(solver.egs - E0_NS16), "f64_residual": resid,
+          "density": dens.tolist(), "docc": solver.docc().ravel().tolist(),
+          "c4_gap": c4, "wall_s": wall,
+          "stages_s": dict(solver.timers.totals),
+          "blk_spmm_launches": launches, "launches_by_type": by_type,
+          "matvecs_by_type": {k: v / 2 for k, v in by_type.items()},
+          "fused_launches": fused.launches + fused.pair_launches,
+          "f64_fallbacks": fallbacks,
+          "max_memory_allocated_gb": peak / 1e9,
+          "cut": "sweep restricted to the (8,8) sector (ed_sectors, "
+                 "sectors_list.restart '8 8', shift 0)",
+          "checks": checks})
+    if not all(checks.values()):
+        fail("large_solve", f"checks failed: {checks}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--loops", type=int, default=0,
@@ -534,7 +832,6 @@ def main():
         log(f"cdmft_lanc_ed_torch is not importable beside this script: "
             f"{exc}")
         return 2
-    import tempfile
 
     t_start = time.time()
     smi = smi_line()
@@ -552,6 +849,7 @@ def main():
 
     worst, timing = phase_kernel(peaks)
     pair_worst, pair_timing = phase_pair_kernel(peaks)
+    blk_timing = phase_large_kernel(peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         phase_plaquette(wd)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
@@ -560,20 +858,25 @@ def main():
         phase_bhz_solve(wd)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         pair_launches = phase_bhz_loop(wd, args.bhz_loops, args.profile)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+        blk_launches = phase_large_solve(wd)
 
-    def entry(name, line, n, err, tm):
+    def entry(name, replaces, n, err, tm):
         return {"name": name, "route": "cuda",
                 "source": f"cdmft_lanc_ed_torch/csrc/{name}.cu",
-                "replaces": f"cdmft_lanc_ed_tpu/ops/pallas_fused.py:{line}",
+                "replaces": f"cdmft_lanc_ed_tpu/ops/{replaces}",
                 "launches": n, "max_abs_err": err, "shape": tm["shape"],
                 "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                 "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
                 "library_ms": tm["library_ms"]}
 
     emit({"kernels": [
-        entry("fused_real_matvec", 96, launches, worst, timing),
-        entry("fused_pair_matvec", 179, pair_launches, pair_worst,
-              pair_timing)],
+        entry("fused_real_matvec", "pallas_fused.py:96", launches, worst,
+              timing),
+        entry("fused_pair_matvec", "pallas_fused.py:179", pair_launches,
+              pair_worst, pair_timing),
+        entry("blk_spmm", "large.py:403", blk_launches,
+              blk_timing["max_abs_err"], blk_timing)],
         "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

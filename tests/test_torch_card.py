@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from cdmft_lanc_ed_torch.ops import fused, split
+from cdmft_lanc_ed_torch.ops import fused, large, split
 
 
 @pytest.fixture
@@ -119,3 +119,91 @@ def test_complex64_dispatch(card):
     assert fused.pair_launches == n0 + 1
     assert float((y32.to(torch.complex128) - y64).abs().max()) \
         <= 1e-3 * float(y64.abs().max())
+
+
+# tolerance of each block-sparse instantiation against its plain version,
+# relative to the largest entry (chip_smoke.py's large_kernel phase)
+BLK_TOL = {"f32": 2e-4, "bf16": 1e-5, "f64": 1e-12, "c64": 2e-4,
+           "c128": 1e-12}
+
+
+def _blk_factor(seed, m, complex_, empty_band):
+    """A random m x m block factor (~1% full) in the kernel's layout; with
+    ``empty_band`` the rows of the second output band stay empty (it
+    owns only its zero padding tile)."""
+    rng = np.random.default_rng(seed)
+    k = m * 4
+    hi = 8 * large.B if empty_band else m
+    rows = rng.integers(0, min(hi, m), size=k)
+    cols = rng.integers(0, m, size=k)
+    vals = rng.normal(size=k)
+    if complex_:
+        vals = vals + 1j * rng.normal(size=k)
+    return large.block_factor_of_coo(m, rows, cols, vals, not complex_,
+                                     np.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(BLK_TOL))
+@pytest.mark.parametrize("m,n,empty_band", [(2100, 512, False),
+                                            (1100, 77, True)])
+def test_blk_spmm_matches_plain(card, kind, m, n, empty_band):
+    """Every instantiation at a two-band shape, at a ragged n and with an
+    empty band, against the plain version on the same inputs (bf16: the
+    plain version in f32 on the bf16 inputs)."""
+    cplx = kind in ("c64", "c128")
+    f = _blk_factor(21, m, cplx, empty_band)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "f64": torch.float64, "c64": torch.complex64,
+          "c128": torch.complex128}[kind]
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(f.nb * large.B, n))
+    if cplx:
+        x = x + 1j * rng.normal(size=x.shape)
+    tiles = torch.as_tensor(f.tiles, device=card).to(dt)
+    xt = torch.as_tensor(x, device=card).to(
+        torch.float32 if kind == "bf16" else dt)
+    rb, cb = (torch.as_tensor(a, device=card)
+              for a in (f.row_blk, f.col_blk))
+    n0 = large.launches
+    y = large.blk_spmm(rb, cb, tiles, xt, f.nb)
+    torch.cuda.synchronize()
+    assert large.launches == n0 + 1
+    if kind == "bf16":
+        ref = large.blk_spmm_ref(rb, cb, tiles.float(),
+                                 xt.to(torch.bfloat16).float(), f.nb)
+    else:
+        ref = large.blk_spmm_ref(rb, cb, tiles, xt, f.nb)
+    assert y.dtype == ref.dtype and y.shape == ref.shape
+    assert bool(torch.isfinite(y).all())
+    if empty_band:
+        assert not bool(y[8 * large.B:].any())
+    assert float((y - ref).abs().max()) \
+        <= BLK_TOL[kind] * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_large_matvec_on_card(card):
+    """The large kit's f32 matvec launches the kernel twice (one per
+    side) and agrees with its f64 matvec."""
+    from cdmft_lanc_ed_torch import EDConfig
+    from cdmft_lanc_ed_torch.models.hubbard import plaquette_replica_bath
+    from cdmft_lanc_ed_torch.ops import sector_ham
+    hloc, basis, lam, v = plaquette_replica_bath(1)
+    cfg = EDConfig(nlat=4, norb=1, nspin=1, nbath=1, uloc=[4.0])
+    hrec = lam[:, 0, None, None, None, None, None, None] * basis
+    dhyb = v.T.reshape(4, 1, 1, -1)
+    op = sector_ham.build_sector_operator(cfg, hloc, hrec, dhyb, 4, 4)
+    d32, dim_p, embed, _ = large.build_real_padded_large(
+        op, dtype=torch.float32, device=card)
+    d64 = large.build_real_padded_large(op, dtype=torch.float64,
+                                        device=card)[0]
+    x = embed(torch.as_tensor(np.random.default_rng(23).normal(
+        size=op.dim), device=card))
+    n0 = large.launches
+    y32 = large.apply_large_real_flat(d32, x.float())
+    assert large.launches == n0 + 2
+    y64 = large.apply_large_real_flat(d64, x)
+    assert float((y32.double() - y64).abs().max()) \
+        <= 2e-4 * float(y64.abs().max())
+
