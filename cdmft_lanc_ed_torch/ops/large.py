@@ -11,8 +11,11 @@ The SpMM is the hand-written CUDA kernel ``csrc/blk_spmm.cu`` (the port
 of the TPU kernel ``_pallas_blk_spmm_call``), for f32, bf16 tiles with f32
 accumulation, f64, complex64 and complex128: :func:`blk_spmm` launches it
 for every CUDA tensor and takes its plain version, :func:`blk_spmm_ref`,
-only for tensors on the CPU.  The Jx/Jp terms (``nd_*``) stay plain
-gathers outside the kernel, as in the JAX package.
+only for tensors on the CPU.  The kernel does not walk the tiles (0.5%
+full at Ns=16) but a compact form of the factor built once per
+operator, a CSR of its nonzeros (:func:`blk_structure`,
+:func:`blk_compact`).  The Jx/Jp terms (``nd_*``) stay plain gathers
+outside the kernel, as in the JAX package.
 
 A complex Hamiltonian takes :class:`LargePairOp`, whose tiles are complex
 tensors (the JAX package's re/im/re+im planes); a real one takes
@@ -128,17 +131,35 @@ def block_factor_of_coo(m: int, rows, cols, vals, real: bool,
 # the block-sparse SpMM: kernel wrapper and plain version
 # ---------------------------------------------------------------------------
 
-def tile_index(rb: torch.Tensor, nb_out: int):
-    """(order [T], off [nb_out + 1]) int32: the tiles grouped row block
-    by row block (a stable sort of ``rb``, so a row block's tiles keep
-    their ascending column order) and each row block's run in ``order``.
-    The kernel walks one run per output row block."""
-    rb64 = rb.long()
-    order = torch.sort(rb64, stable=True).indices
-    counts = torch.bincount(rb64, minlength=nb_out)
-    off = torch.zeros(nb_out + 1, dtype=torch.long, device=rb.device)
-    off[1:] = torch.cumsum(counts, 0)
-    return order.int(), off.int()
+def blk_structure(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
+                  nb_out: int):
+    """The nonzero structure of a tiled factor, the kernel's compact form
+    without its values: (row_ptr [nb_out·B + 1] int32, cols [nnz] int32,
+    pos [nnz] int64).  Row r's nonzeros are entries row_ptr[r] ..
+    row_ptr[r+1] - 1, in ascending global column ``cols`` (the order in
+    which the tiles of a row block sum); ``pos`` is each one's flat index
+    into ``tiles``, so operators of any type with the same tile layout
+    share one structure (:func:`blk_compact`).  Derived on the tiles'
+    device."""
+    t, r, k = (tiles != 0).nonzero(as_tuple=True)
+    rows = rb.long()[t] * B + r
+    cols = cb.long()[t] * B + k
+    order = torch.argsort(rows * (cb.long().max() + 1) * B + cols) \
+        if len(t) else t
+    rows, cols = rows[order], cols[order]
+    pos = ((t * B + r) * B + k)[order]
+    row_ptr = torch.zeros(nb_out * B + 1, dtype=torch.long,
+                          device=tiles.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=nb_out * B), 0)
+    return row_ptr.int(), cols.int(), pos
+
+
+def blk_compact(tiles: torch.Tensor, structure) -> tuple:
+    """The kernel's compact form of ``tiles`` on ``structure`` (of
+    :func:`blk_structure`): (row_ptr, cols, vals), vals [nnz] in the tile
+    type."""
+    row_ptr, cols, pos = structure
+    return row_ptr, cols, tiles.reshape(-1)[pos]
 
 
 def _chunk_cols(t: int, itemsize: int) -> int:
@@ -174,7 +195,7 @@ def _kernel(entry: str):
     fn = _entries.get(entry)
     if fn is None:
         fn = getattr(build.load("blk_spmm"), entry)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int,
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
                                                ctypes.c_longlong,
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -189,11 +210,11 @@ def blk_spmm(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
 
     tiles [T, B, B] f32, bf16, f64, complex64 or complex128; x [m_src, n]
     of the tile type (f32 for bf16 tiles, cast to bf16 for the kernel,
-    whose output is f32).  The kernel walks ``index`` = (order, off) of
-    :func:`tile_index`, derived from ``rb`` when not given (it needs no
-    first-of-band flags: each block writes its row block once).  A CPU
-    tensor takes :func:`blk_spmm_ref`; a CUDA tensor launches the kernel
-    or raises."""
+    whose output is f32).  The kernel runs on ``index``, the compact form
+    (row_ptr, cols, vals) of :func:`blk_compact`, derived from the tiles
+    when not given (it needs no first-of-band flags: each row is written
+    once, a row without nonzeros as zeros).  A CPU tensor takes
+    :func:`blk_spmm_ref`; a CUDA tensor launches the kernel or raises."""
     global launches
     fn = "blk_spmm"
     bf16 = tiles.dtype == torch.bfloat16
@@ -222,23 +243,31 @@ def blk_spmm(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
     if x.is_conj() or tiles.is_conj():
         raise ValueError(f"{fn}: lazy conjugation (call resolve_conj "
                          f"first)")
-    order, off = index if index is not None else tile_index(rb, nb_out)
-    cbi = cb if cb.dtype == torch.int32 else cb.int()
-    for name, t in (("order", order), ("off", off), ("cb", cbi)):
+    if index is None:
+        index = blk_compact(tiles, blk_structure(rb, cb, tiles, nb_out))
+    row_ptr, cols, vals = index
+    for name, t in (("row_ptr", row_ptr), ("cols", cols)):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous int32")
-    if off.numel() != nb_out + 1:
-        raise ValueError(f"{fn}: off has {off.numel()} entries, "
-                         f"{nb_out + 1} expected")
+    if row_ptr.numel() != nb_out * B + 1:
+        raise ValueError(f"{fn}: row_ptr has {row_ptr.numel()} entries, "
+                         f"{nb_out * B + 1} expected")
+    if vals.dtype != tiles.dtype or vals.numel() != cols.numel() \
+            or not vals.is_contiguous() or vals.is_conj():
+        raise ValueError(f"{fn}: vals must be {cols.numel()} contiguous "
+                         f"{tiles.dtype} values")
+    for name, t in (("row_ptr", row_ptr), ("cols", cols), ("vals", vals)):
+        if t.device != x.device:
+            raise ValueError(f"{fn}: {name} on {t.device}, x on "
+                             f"{x.device}")
     y = torch.empty(nb_out * B, x.shape[1], device=x.device,
                     dtype=torch.float32 if bf16 else x.dtype)
     entry = _ENTRY[tiles.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel(entry)(
-            tiles.data_ptr(), order.data_ptr(), cbi.data_ptr(),
-            off.data_ptr(), x.data_ptr(), y.data_ptr(), nb_out,
-            x.shape[1], stream)
+            row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(),
+            x.data_ptr(), y.data_ptr(), nb_out * B, x.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"{fn}: launch failed with cudaError {err}")
     launches += 1
@@ -252,16 +281,21 @@ def blk_spmm(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
 
 @dataclass
 class LargeRealOp:
-    """REAL sector Hamiltonian with block-sparse spin factors.  ``*_idx``
-    are the kernel's (order, off) of :func:`tile_index` for each side."""
+    """REAL sector Hamiltonian with block-sparse spin factors.  For each
+    side, ``*_nz`` is the nonzero structure of :func:`blk_structure`
+    (shared by the operators of every type under ``reuse``) and ``*_idx``
+    the kernel's compact form of :func:`blk_compact` (values in the tile
+    type)."""
     diag: torch.Tensor       # [Ddp, Dup]
     dw_rb: torch.Tensor      # [Td] i32
     dw_cb: torch.Tensor
     dw_tiles: torch.Tensor   # [Td, B, B]
+    dw_nz: tuple
     dw_idx: tuple
     up_rb: torch.Tensor      # [Tu] i32 (H_up row blocks, applied to Xᵀ)
     up_cb: torch.Tensor
     up_tiles: torch.Tensor
+    up_nz: tuple
     up_idx: tuple
     nd_amp: torch.Tensor     # [T]
     nd_up_src: torch.Tensor  # [T, Dup] i64 (padded: -1)
@@ -312,8 +346,9 @@ def _padded_diag(op: SectorOperator, ddp: int, dup: int, dtype,
 def _build(cls, op: SectorOperator, real: bool, dtype, reuse, device):
     """Device operator ``cls`` of ``op``: tiles in ``dtype`` (bf16 tiles
     keep an f32 diagonal and amplitudes); ``reuse`` shares the diagonal,
-    index and nd arrays of a same-shape operator (at Ns=16 the padded f64
-    diagonal alone is 1.34 GB)."""
+    the block indices, the nonzero structures and the nd arrays of a
+    same-shape operator (at Ns=16 the padded f64 diagonal alone is
+    1.34 GB)."""
     device = torch.device(device)
     vdt = torch.float32 if dtype == torch.bfloat16 else real_dtype(dtype)
     tdt = dtype if real else complex_dtype(vdt)
@@ -325,24 +360,29 @@ def _build(cls, op: SectorOperator, real: bool, dtype, reuse, device):
     def tiles(f):
         return torch.as_tensor(f.tiles).to(device=device, dtype=tdt)
 
+    dw_tiles, up_tiles = tiles(fd), tiles(fu)
     if reuse is not None:
         kw = {k: getattr(reuse, k) for k in (
-            "diag", "dw_rb", "dw_cb", "dw_idx", "up_rb", "up_cb",
-            "up_idx", "nd_amp", "nd_up_src", "nd_up_sgn",
-            "nd_dw_src", "nd_dw_sgn")}
-        return cls(dw_tiles=tiles(fd), up_tiles=tiles(fu), **kw)
+            "diag", "dw_rb", "dw_cb", "dw_nz", "up_rb", "up_cb", "up_nz",
+            "nd_amp", "nd_up_src", "nd_up_sgn", "nd_dw_src", "nd_dw_sgn")}
+        return cls(dw_tiles=dw_tiles, up_tiles=up_tiles,
+                   dw_idx=blk_compact(dw_tiles, reuse.dw_nz),
+                   up_idx=blk_compact(up_tiles, reuse.up_nz), **kw)
     amp, us, ug, ds, dg = _nd_maps(op, dup, ddp)
 
     def ints(a, dt=torch.int32):
         return torch.as_tensor(a).to(device=device, dtype=dt)
 
-    dw_rb, up_rb = ints(fd.row_blk), ints(fu.row_blk)
+    dw_rb, dw_cb = ints(fd.row_blk), ints(fd.col_blk)
+    up_rb, up_cb = ints(fu.row_blk), ints(fu.col_blk)
+    dw_nz = blk_structure(dw_rb, dw_cb, dw_tiles, fd.nb)
+    up_nz = blk_structure(up_rb, up_cb, up_tiles, fu.nb)
     return cls(
         diag=_padded_diag(op, ddp, dup, vdt, device),
-        dw_rb=dw_rb, dw_cb=ints(fd.col_blk),
-        dw_tiles=tiles(fd), dw_idx=tile_index(dw_rb, fd.nb),
-        up_rb=up_rb, up_cb=ints(fu.col_blk),
-        up_tiles=tiles(fu), up_idx=tile_index(up_rb, fu.nb),
+        dw_rb=dw_rb, dw_cb=dw_cb, dw_tiles=dw_tiles, dw_nz=dw_nz,
+        dw_idx=blk_compact(dw_tiles, dw_nz),
+        up_rb=up_rb, up_cb=up_cb, up_tiles=up_tiles, up_nz=up_nz,
+        up_idx=blk_compact(up_tiles, up_nz),
         nd_amp=torch.as_tensor(amp.real if real else amp.astype(
             np.complex128)).to(device=device, dtype=tdt if real else
                                complex_dtype(vdt)),

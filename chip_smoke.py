@@ -21,7 +21,11 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  into n), one side of a complex Ns=16 factor (the BHZ
                  chain with 3 general baths) and a tiny factor with an
                  empty band and a ragged n; timed beside its bound, its
-                 plain version and cuSPARSE (torch.sparse.mm).
+                 plain version and cuSPARSE (torch.sparse.mm).  Every
+                 timed record of 2-3b carries library_ratio = ms /
+                 library_ms; the block-sparse ones also the bound with
+                 the factor read in the kernel's compact form
+                 (compact_bound_ms) beside the dense-tile bound.
 4. plaquette   - bath-less U=4 half-filled 2x2 plaquette: EGS
                  -6.1027484835, dens 1, docc ~0.0718.
 5. loop        - the metric-2 CDMFT loop (2x2 plaquette + 2 replica baths,
@@ -54,9 +58,9 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the package beside this script, it exits non-zero and prints no result.
 ``--loops N`` runs N loop iterations instead of converging, and
-``--profile`` traces both loop phases with torch.profiler and prints the
-device time by kernel and the device's busy share (exploration, not part
-of the default run).
+``--profile`` traces both loop phases and a few f64 GF chain steps of
+the Ns=16 solve with torch.profiler and prints the device time by kernel
+and the device's busy share (exploration, not part of the default run).
 """
 import argparse
 import json
@@ -119,6 +123,35 @@ def nvcc_release(nvcc):
                          timeout=60)
     return next((ln for ln in out.stdout.splitlines() if "release" in ln),
                 out.stdout.strip())
+
+
+def ptxas_summary(log):
+    """{kernel: "N registers, S bytes spill stores, L bytes spill loads"}
+    from nvcc's -Xptxas -v output, kernel names demangled by c++filt where
+    it exists."""
+    out, name, spill = {}, None, ""
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            name = ln.split("Function properties for")[1].strip()
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            regs = ln.split("Used")[1].split(",")[0].strip()
+            out[name] = f"{regs}, {spill}"
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    except OSError:
+        return out
+    if len(names) != len(out):
+        return out
+    # "void (anonymous namespace)::k<float, 4>(int const*, ...)" becomes
+    # "k<float, 4>"
+    short = [n.split("::", 1)[-1].split(">(")[0] + ">" if ">(" in n else n
+             for n in names]
+    return dict(zip(short, out.values()))
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -231,7 +264,8 @@ def kernel_phase(name, peaks, complex_, shapes, rel_tol, tol_text):
         bound, by = fused_bound_ms(b, d, u, peaks, complex_)
         flops = fused_cost(b, d, u, complex_)[0]
         timings.append({"shape": [b, d, u], "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound,
+                        "library_ms": library_ms,
+                        "library_ratio": ms / library_ms, "bound_ms": bound,
                         "bound_by": by, "roofline_share": bound / ms,
                         "tflops": flops / (ms * 1e-3) / 1e12})
     emit({"phase": phase, "tolerance": tol_text + TF32_TOL,
@@ -286,15 +320,16 @@ def profile_summary(prof, wall_s):
     """Device time by kernel, the busy share of the device over the traced
     wall time (kernels on one stream, so the sum is the busy time), and
     the CPU ops whose kernels took the most device time.  A CPU op's
-    device time repeats that of the kernels it launched, so only
-    device-side rows count towards the busy time."""
+    device time repeats that of the kernels it launched, and a profiler
+    step's that of the kernels in the step, so only device-side kernel
+    rows count towards the busy time."""
     from torch.autograd import DeviceType
     kernels, ops = [], []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
+        if dev_us > 0 and not ev.key.startswith("ProfilerStep"):
             rows = ops if ev.device_type == DeviceType.CPU else kernels
             rows.append((dev_us, ev.key, ev.count))
     busy_s = sum(r[0] for r in kernels) * 1e-6
@@ -548,6 +583,7 @@ NS16_SECTOR = (8, 8)          # half filling: dim C(16,8)^2 = 1.66e8
 # beyond 1e-5 (measured on the CPU at the same cut: 8.4e-7 at Ns=8,
 # 1.9e-5 at Ns=12, against 2e-14 in f64), and 80 GB hold f64 chains
 NS16_GF_PRECISION = "double"
+GF_PROFILE_STEPS = 8          # chain steps traced by --profile
 # H100 data-sheet peaks (dense, SXM) beside PEAKS: bf16 on the tensor
 # cores, FP64 outside them; complex types take their real type's peak.
 PEAK_BF16, PEAK_F64 = 989e12, 34e12
@@ -583,6 +619,24 @@ def sector_op(solver, bath, hloc, nup, ndw):
     return solver._sector_builder()(nup, ndw)
 
 
+def blk_bound(ops, nbytes, kind, peaks):
+    """(bound ms, bound_by): ``ops`` real operations over the peak of
+    instantiation ``kind``, ``nbytes`` over HBM bandwidth."""
+    peak = {"f32": peaks[0], "c64": peaks[0], "bf16": PEAK_BF16,
+            "f64": PEAK_F64, "c128": PEAK_F64}[kind]
+    t_ops, t_bytes = ops / peak, nbytes / peaks[1]
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def blk_io_bytes(x, nb_out, kind):
+    """x read once and y written once (bf16 x and f32 y for bf16
+    tiles)."""
+    x_item = 2 if kind == "bf16" else x.element_size()
+    y_item = 4 if kind == "bf16" else x.element_size()
+    return x_item * x.numel() + y_item * nb_out * 128 * x.shape[1]
+
+
 def blk_cost(tiles, x, nb_out, nnz, kind, peaks):
     """(bound ms, bound_by, operations, bytes, padded tile FLOPs) of one
     block-sparse SpMM on ``x`` [m, n]: 2·nnz·n real operations (8 for a
@@ -592,16 +646,23 @@ def blk_cost(tiles, x, nb_out, nnz, kind, peaks):
     n = x.shape[1]
     per = 8.0 if tiles.is_complex() else 2.0
     ops = per * nnz * n
-    x_item = 2 if kind == "bf16" else x.element_size()
-    y_item = 4 if kind == "bf16" else x.element_size()
-    nbytes = (tiles.element_size() * tiles.numel() + x_item * x.numel()
-              + y_item * nb_out * 128 * n)
-    peak = {"f32": peaks[0], "c64": peaks[0], "bf16": PEAK_BF16,
-            "f64": PEAK_F64, "c128": PEAK_F64}[kind]
-    t_ops, t_bytes = ops / peak, nbytes / peaks[1]
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes,
+    nbytes = (tiles.element_size() * tiles.numel()
+              + blk_io_bytes(x, nb_out, kind))
+    return (*blk_bound(ops, nbytes, kind, peaks), ops, nbytes,
             per * tiles.shape[0] * 128 * 128 * n)
+
+
+def blk_compact_cost(index, x, nb_out, kind, peaks):
+    """(bound ms, bound_by) of the same SpMM with the factor read in the
+    kernel's compact form (row offsets, columns and values) instead of
+    dense tiles: x and y each moved once, the operations of
+    :func:`blk_cost` on the stored nonzeros."""
+    row_ptr, cols, vals = index
+    ops = (8.0 if vals.is_complex() else 2.0) * vals.numel() * x.shape[1]
+    nbytes = (4 * (row_ptr.numel() + cols.numel())
+              + vals.element_size() * vals.numel()
+              + blk_io_bytes(x, nb_out, kind))
+    return blk_bound(ops, nbytes, kind, peaks)
 
 
 def blk_case(name, kind, f, x_np, peaks, time_it):
@@ -618,7 +679,7 @@ def blk_case(name, kind, f, x_np, peaks, time_it):
                                  else dt)
     rb, cb = (torch.as_tensor(a).to(dev) for a in (f.row_blk, f.col_blk))
     nb = f.nb
-    idx = large.tile_index(rb, nb)
+    idx = large.blk_compact(tiles, large.blk_structure(rb, cb, tiles, nb))
     y = large.blk_spmm(rb, cb, tiles, x, nb, index=idx)
     torch.cuda.synchronize()
     if kind == "bf16":
@@ -659,7 +720,12 @@ def blk_case(name, kind, f, x_np, peaks, time_it):
             bound_ms=bound, bound_by=by, operations=ops, bytes=nbytes,
             padded_tile_flops=padded)
         rec["library_ms"] = library_ms(f, kind, xk, dev)
+        rec["library_ratio"] = (rec["ms"] / rec["library_ms"]
+                                if rec["library_ms"] else None)
         rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+        rec["compact_bound_ms"], rec["compact_bound_by"] = \
+            blk_compact_cost(idx, xk, nb, kind, peaks)
+        rec["compact_roofline_share"] = rec["compact_bound_ms"] / rec["ms"]
     return rec
 
 
@@ -746,9 +812,71 @@ def phase_large_kernel(peaks):
                 and r["type"] == "f32")
 
 
-def phase_large_solve(workdir):
+def profile_gf_steps(dev64, v0, steps=GF_PROFILE_STEPS, warmup=2):
+    """Time and trace ``steps`` f64 GF chain steps of the large kit (the
+    Lanczos recurrence of gf.py's large chains, one injection, the batched
+    applier) from ``v0`` [1, dim_p]; one ``profile`` line.  A step is one
+    applier call and the recurrence's vector passes after it.  First an
+    untraced chain, timed on the host clock; then a chain under
+    torch.profiler with a schedule whose profiler step is one chain step,
+    the device synchronised at each step's end; ``warmup`` steps before
+    them run traced and are dropped.  The trace can still miss kernels
+    (on an H100 one of two such traces held 14 of its 16 SpMMs), so
+    ``complete`` says whether it holds two SpMMs per step; per-step times
+    are the trace's totals over ``steps``.
+    What a chain step of the (9,8) and (7,8) GF targets (dim 1.47e8)
+    costs, on the (8,8) sector's operator (dim 1.66e8).  Returns the
+    untraced seconds per step."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile as tprofile,
+                                schedule)
+    from cdmft_lanc_ed_torch.ops import lanczos, large
+
+    def chain(apply_fn, n):
+        return lanczos.lanczos_tridiag_batched_real(
+            apply_fn, v0, n, op=dev64, dtype=torch.float64)
+
+    chain(large.apply_large_real_flat_batched, 2)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    chain(large.apply_large_real_flat_batched, steps)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / steps
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  schedule=schedule(wait=1, warmup=warmup, active=steps,
+                                    repeat=1)) as prof:
+        def stepped(op, v):
+            # profiler step k + 1 is chain step k: applier k and the
+            # recurrence after it; step 0 is the chain's set-up
+            torch.cuda.synchronize()
+            prof.step()
+            return large.apply_large_real_flat_batched(op, v)
+
+        t0 = time.time()
+        chain(stepped, warmup + steps + 1)
+        torch.cuda.synchronize()
+        traced_s = (time.time() - t0) / (warmup + steps + 1)
+    summary = profile_summary(prof, step_s * steps)
+    spmm = sum(r["count"] for r in summary["top"]
+               if r["name"].startswith("void (anonymous namespace)::"
+                                       "blk_spmm_kernel"))
+    emit({"phase": "profile", "of": f"large_gf_{steps}_steps",
+          "steps": steps, "step_s": step_s, "traced_step_s": traced_s,
+          "device_s_per_step": summary["device_s"] / steps,
+          "blk_spmm_launches": spmm,
+          "complete": spmm == 2 * steps,
+          "top_per_step": [{**r, "device_s": r["device_s"] / steps}
+                           for r in summary["top"]],
+          "top_ops_per_step": [{**r, "device_s": r["device_s"] / steps}
+                               for r in summary["top_ops"]]})
+    return step_s
+
+
+def phase_large_solve(workdir, profile=False):
     """One EDSolver.solve of the Ns=16 flagship, the sweep cut to its
-    (8,8) sector by the reference's own mechanism."""
+    (8,8) sector by the reference's own mechanism; with ``profile``, also
+    a trace of a few GF chain steps."""
     import torch
     from cdmft_lanc_ed_torch.ops import fused, large, lanczos
     solver, bath, hloc = flagship_solver(
@@ -778,7 +906,9 @@ def phase_large_solve(workdir):
     hx = extract(large.apply_large_real_flat(d64, embed(xv)))
     resid = float(torch.linalg.vector_norm(hx - solver.egs * xv)
                   / torch.linalg.vector_norm(xv))
-    del d64, hx
+    del hx
+    step_s = profile_gf_steps(d64, embed(xv)[None]) if profile else None
+    del d64
     dens = solver.dens().ravel()
     gm = solver.gimp_matsubara()
     sm = solver.sigma_matsubara()
@@ -803,6 +933,7 @@ def phase_large_solve(workdir):
           "fused_launches": fused.launches + fused.pair_launches,
           "f64_fallbacks": fallbacks,
           "max_memory_allocated_gb": peak / 1e9,
+          "profiled_gf_step_s": step_s,
           "cut": "sweep restricted to the (8,8) sector (ed_sectors, "
                  "sectors_list.restart '8 8', shift 0)",
           "checks": checks})
@@ -817,7 +948,8 @@ def main():
                     help="run this many loop iterations instead of "
                          "converging")
     ap.add_argument("--profile", action="store_true",
-                    help="trace both loop phases with torch.profiler")
+                    help="trace both loop phases and a few Ns=16 GF chain "
+                         "steps with torch.profiler")
     ap.add_argument("--bhz-loops", type=int, default=2,
                     help="iterations of the BHZ loop phase")
     args = ap.parse_args()
@@ -841,9 +973,7 @@ def main():
     emit({"phase": "build", "seconds": time.time() - t0,
           "kernels": {k: {"seconds": v["seconds"], "cached": v["cached"]}
                       for k, v in built.items()},
-          "ptxas": {k: [ln for ln in v["ptxas"].splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for k, v in built.items()},
+          "ptxas": {k: ptxas_summary(v["ptxas"]) for k, v in built.items()},
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc_release(build.nvcc_path())})
 
@@ -859,7 +989,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         pair_launches = phase_bhz_loop(wd, args.bhz_loops, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-        blk_launches = phase_large_solve(wd)
+        blk_launches = phase_large_solve(wd, args.profile)
 
     def entry(name, replaces, n, err, tm):
         return {"name": name, "route": "cuda",

@@ -20,24 +20,44 @@ def card():
     return torch.device("cuda")
 
 
+def tf32_round(a):
+    """``a`` (float32) with every float rounded to TF32's 10-bit mantissa,
+    to nearest (chip_smoke.py's control)."""
+    i = a.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,d,u", [(0, 1024, 1024), (3, 924, 924),
-                                   (0, 66, 220), (2, 1, 12)])
-def test_kernel_matches_plain(card, b, d, u):
+@pytest.mark.parametrize("b,shared", [(0, False), (1, False), (3, False),
+                                      (9, False), (1, True), (3, True),
+                                      (9, True)])
+@pytest.mark.parametrize("d,u", [(1, 1), (12, 66), (924, 924),
+                                 (1024, 1024)])
+def test_kernel_matches_plain(card, b, d, u, shared):
+    """The real kernel at the unbucketed (1, 12x66) and bucketed shapes,
+    unbatched and at B = 1, 3, 9, with per-member or shared (batch stride
+    0) operators: 2e-4 of the largest entry, and a tenth of the error
+    that TF32-rounded inputs give (IEEE f32, never TF32)."""
     rng = np.random.default_rng(11)
-    lead = (b,) if b else ()
+    lead = (b,) if b and not shared else ()
+    xlead = (b,) if b else ()
 
     def t(*shape):
         return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
                                device=card)
 
-    args = (t(*lead, d, u), t(*lead, d, d), t(*lead, u, u), t(*lead, d, u))
+    args = (t(*lead, d, u), t(*lead, d, d), t(*lead, u, u), t(*xlead, d, u))
     n0 = fused.launches
     out = fused.fused_real_matvec(*args)
     torch.cuda.synchronize()
     assert fused.launches == n0 + 1
     ref = fused.fused_real_matvec_ref(*args)
-    assert float((out - ref).abs().max()) <= 2e-4 * float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    tf32 = float((fused.fused_real_matvec_ref(*map(tf32_round, args))
+                  - ref).abs().max())
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert err <= 2e-4 * float(ref.abs().max())
+    assert err <= 0.1 * tf32
 
 
 @pytest.mark.cuda
@@ -128,17 +148,24 @@ BLK_TOL = {"f32": 2e-4, "bf16": 1e-5, "f64": 1e-12, "c64": 2e-4,
 
 
 def _blk_factor(seed, m, complex_, empty_band):
-    """A random m x m block factor (~1% full) in the kernel's layout; with
-    ``empty_band`` the rows of the second output band stay empty (it
-    owns only its zero padding tile)."""
+    """A random m x m block factor (~1% full) in the kernel's layout; row 5
+    holds 40 nonzeros, more than one warp's load of 32.  With
+    ``empty_band`` the rows of the second output band stay empty (it owns
+    only its zero padding tile) while the bands on either side of it hold
+    nonzeros."""
     rng = np.random.default_rng(seed)
     k = m * 4
-    hi = 8 * large.B if empty_band else m
-    rows = rng.integers(0, min(hi, m), size=k)
-    cols = rng.integers(0, m, size=k)
-    vals = rng.normal(size=k)
+    band = 8 * large.B
+    if empty_band:
+        rows = rng.choice(np.r_[0:min(band, m), 2 * band:m], size=k)
+    else:
+        rows = rng.integers(0, m, size=k)
+    rows = np.concatenate([rows, np.full(40, 5)])
+    cols = np.concatenate([rng.integers(0, m, size=k),
+                           rng.choice(m, size=40, replace=False)])
+    vals = rng.normal(size=k + 40)
     if complex_:
-        vals = vals + 1j * rng.normal(size=k)
+        vals = vals + 1j * rng.normal(size=k + 40)
     return large.block_factor_of_coo(m, rows, cols, vals, not complex_,
                                      np.float64)
 
@@ -146,11 +173,20 @@ def _blk_factor(seed, m, complex_, empty_band):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", list(BLK_TOL))
 @pytest.mark.parametrize("m,n,empty_band", [(2100, 512, False),
-                                            (1100, 77, True)])
+                                            (1100, 77, True),
+                                            (2100, 77, True),
+                                            (2100, 1536, True),
+                                            (2100, 1536, False)])
 def test_blk_spmm_matches_plain(card, kind, m, n, empty_band):
-    """Every instantiation at a two-band shape, at a ragged n and with an
-    empty band, against the plain version on the same inputs (bf16: the
-    plain version in f32 on the bf16 inputs)."""
+    """Every instantiation on factors with a row longer than 32 nonzeros,
+    with nonzeros in every band or an empty band between two full ones, at
+    a ragged n (77: one element per access) and at n = 512 and 1536
+    (16-byte accesses).  A column slice of the grid is 512 f32, 1024 bf16,
+    256 f64 or complex64 and 128 complex128 columns wide, so at n = 1536
+    every row crosses two or more slices in every type (at 512: f64 and
+    the complex types).  Held to the plain version on the same inputs
+    (bf16: the plain version in f32 on the bf16 inputs); f32 and
+    complex64 also within a tenth of the TF32 control."""
     cplx = kind in ("c64", "c128")
     f = _blk_factor(21, m, cplx, empty_band)
     dt = {"f32": torch.float32, "bf16": torch.bfloat16,
@@ -177,9 +213,19 @@ def test_blk_spmm_matches_plain(card, kind, m, n, empty_band):
     assert y.dtype == ref.dtype and y.shape == ref.shape
     assert bool(torch.isfinite(y).all())
     if empty_band:
-        assert not bool(y[8 * large.B:].any())
-    assert float((y - ref).abs().max()) \
-        <= BLK_TOL[kind] * float(ref.abs().max())
+        assert not bool(y[8 * large.B:16 * large.B].any())
+        assert bool(y[:8 * large.B].any())
+        if m > 16 * large.B:
+            assert bool(y[16 * large.B:m].any())
+    err = float((y - ref).abs().max())
+    assert err <= BLK_TOL[kind] * float(ref.abs().max())
+    if kind in ("f32", "c64"):
+        def rnd(a):
+            return torch.view_as_complex(tf32_round(torch.view_as_real(a))) \
+                if a.is_complex() else tf32_round(a)
+        tf32 = float((large.blk_spmm_ref(rb, cb, rnd(tiles), rnd(xt), f.nb)
+                      - ref).abs().max())
+        assert err <= 0.1 * tf32
 
 
 @pytest.mark.cuda
