@@ -13,15 +13,18 @@ version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
 from .. import build
 
 # Kernel launches in this process (one per call that reached the card):
-# ``launches`` counts the real kernel, ``pair_launches`` the complex one.
+# ``launches`` counts the real kernel, ``pair_launches`` the complex one,
+# and ``pair_shapes`` the complex one's launches by (B, D, U).
 launches = 0
 pair_launches = 0
+pair_shapes: Counter = Counter()
 _entries = {}   # the C entry points, typed once at first use
 
 
@@ -146,4 +149,5 @@ def fused_pair_matvec(diag: torch.Tensor, hdw: torch.Tensor,
         return fused_pair_matvec_ref(diag, hdw, hupT, x)
     out = _launch(fn, "fused_pair_matvec_c64", diag, hdw, hupT, x, d, u, nb)
     pair_launches += 1
+    pair_shapes[(nb, d, u)] += 1
     return out

@@ -10,10 +10,12 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
 2. kernel      - the real kernel against its plain PyTorch version on the
                  card at the main path's shapes, then timed (CUDA events)
                  beside its bound and one PyTorch library call.
-3. pair_kernel - the same for the complex kernel (complex64).  Each check
-                 also reports the error of the plain version on inputs
-                 rounded to TF32 (a control: what a TF32 kernel would
-                 show).
+3. pair_kernel - the same for the complex kernel (complex64), on each of
+                 its paths (16-byte copies, the cluster pair, one element
+                 per copy for an odd U or an x not 16-byte aligned).  Each
+                 check also reports the error of the plain version on
+                 inputs rounded to TF32 (a control: what a TF32 kernel
+                 would show).
 3b. large_kernel - the block-sparse SpMM kernel in every instantiation
                  (f32, bf16, f64, complex64, complex128) against its plain
                  version: both sides of the Ns=16 flagship's (8,8) factors
@@ -40,7 +42,9 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  and Sigma to 5e-5 relative between the two, everything
                  finite, the spin-up and spin-down diagonals of Sigma
                  equal (time reversal), complex kernel launches > 0;
-                 counts the sectors the mixed solve re-solved in f64.
+                 counts the sectors the mixed solve re-solved in f64 and
+                 the complex kernel's launches by (B, D, U), and times the
+                 kernel and the library call over that launch mix.
 7. bhz_loop    - the same configuration through run_dmft_loop for 2
                  iterations ("mixed", wmixing 0.5): finite, time reversal
                  kept, complex kernel launches > 0; wall and stage times
@@ -64,6 +68,7 @@ and the device's busy share (exploration, not part of the default run).
 """
 import argparse
 import json
+from collections import Counter
 import subprocess
 import sys
 import tempfile
@@ -203,9 +208,10 @@ def tf32_round(a):
 
 def kernel_phase(name, peaks, complex_, shapes, rel_tol, tol_text):
     """Check kernel ``name`` (fused_real_matvec or fused_pair_matvec)
-    against its plain version at ``shapes`` [(B, D, U, shared_op)], then
-    time it, the plain version and one library call at B = 1, 4, 9 on the
-    1024 bucket.  Returns (worst error, timing at B = 9)."""
+    against its plain version at ``shapes`` [(B, D, U, shared_op[,
+    x_offset])], then time it, the plain version and one library call at
+    B = 1, 4, 9 on the 1024 bucket.  Returns (worst error, timing at
+    B = 9)."""
     import torch
     from cdmft_lanc_ed_torch.ops import fused
     kernel = getattr(fused, name)
@@ -221,17 +227,21 @@ def kernel_phase(name, peaks, complex_, shapes, rel_tol, tol_text):
             return torch.as_tensor(a.astype(np.complex64)).to(dev)
         return torch.as_tensor(a.astype(np.float32)).to(dev)
 
-    def problem(b, d, u, shared=False):
+    def problem(b, d, u, shared=False, offset=0):
         lead = (b,) if b and not shared else ()
         xlead = (b,) if b else ()
-        return (t(*lead, d, u), t(*lead, d, d, cplx=complex_),
-                t(*lead, u, u, cplx=complex_),
-                t(*xlead, d, u, cplx=complex_))
+        diag, hdw, hupT, x = (t(*lead, d, u), t(*lead, d, d, cplx=complex_),
+                              t(*lead, u, u, cplx=complex_),
+                              t(*xlead, d, u, cplx=complex_))
+        if offset:   # x at an element offset in a larger buffer
+            buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+            x = buf[offset:].view(x.shape).copy_(x)
+        return diag, hdw, hupT, x
 
     checks = []
     worst = 0.0
-    for b, d, u, shared in shapes:
-        args = problem(b, d, u, shared)
+    for b, d, u, shared, *offset in shapes:
+        args = problem(b, d, u, shared, *offset)
         out = kernel(*args)
         torch.cuda.synchronize()
         ref = plain(*args)
@@ -243,6 +253,7 @@ def kernel_phase(name, peaks, complex_, shapes, rel_tol, tol_text):
         ok = bool(torch.isfinite(out).all()) and err <= rel_tol * scale \
             and err <= 0.1 * tf32_err
         checks.append({"shape": [b or 1, d, u], "shared_operator": shared,
+                       "x_offset": offset[0] if offset else 0,
                        "max_abs_err": err, "max_abs_ref": scale,
                        "tf32_control_err": tf32_err, "ok": ok})
         worst = max(worst, err)
@@ -282,11 +293,55 @@ def phase_kernel(peaks):
 
 
 def phase_pair_kernel(peaks):
+    # The kernel's paths: 16-byte copies (B = 1 and 4 at 1024², 924²), the
+    # cluster pair (fewer tiles than SMs: B = 1 at 512², 66x220, 3 x 12x66)
+    # and one complex value per copy (odd U: 7x33; x one element into a
+    # buffer, so not 16-byte aligned).
     return kernel_phase(
         "fused_pair_matvec", peaks, True,
-        ((4, 1024, 1024, False), (4, 924, 924, False),
-         (0, 66, 220, False), (3, 12, 66, True)),
+        ((4, 1024, 1024, False), (1, 1024, 1024, False),
+         (4, 924, 924, False), (1, 512, 512, False), (0, 66, 220, False),
+         (3, 12, 66, True), (3, 7, 33, False), (0, 924, 924, False, 1)),
         1e-3, PAIR_TOL)
+
+
+def top_shapes(counter, n=5):
+    """The ``n`` most frequent (B, D, U) of a launch counter."""
+    return [{"shape": list(k), "launches": v}
+            for k, v in counter.most_common(n)]
+
+
+def pair_mix(counter):
+    """The complex kernel and the library call timed over a launch mix
+    {(B, D, U): launches}: seconds summed over every launch (per-member
+    operators, unit-normal inputs), and ms per launch of the five most
+    frequent shapes.  Launches made here are not counted by the caller."""
+    import torch
+    from cdmft_lanc_ed_torch.ops import fused
+    rng = np.random.default_rng(7)
+    dev = torch.device("cuda")
+
+    def c(*shape):
+        a = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+        return torch.as_tensor(a.astype(np.complex64)).to(dev)
+
+    total = {"kernel_s": 0.0, "library_s": 0.0}
+    top = []
+    for (b, d, u), n in counter.most_common():
+        diag = torch.as_tensor(rng.normal(size=(b, d, u)).astype(
+            np.float32)).to(dev)
+        hdw, hupT, x = c(b, d, d), c(b, u, u), c(b, d, u)
+        ms = time_ms(lambda: fused.fused_pair_matvec(diag, hdw, hupT, x))
+        lib = time_ms(lambda: torch.addcmul(torch.matmul(hdw, x), diag, x)
+                      + torch.matmul(x, hupT))
+        total["kernel_s"] += n * ms / 1e3
+        total["library_s"] += n * lib / 1e3
+        if len(top) < 5:
+            top.append({"shape": [b, d, u], "launches": n, "ms": ms,
+                        "library_ms": lib})
+    return {"launches": sum(counter.values()), "shapes": len(counter),
+            **total, "library_ratio": total["kernel_s"] / total["library_s"],
+            "top": top}
 
 
 def plaquette_hloc():
@@ -478,6 +533,7 @@ def phase_bhz_solve(workdir):
     for prec in ("mixed", "complex128"):
         solver, bath, _, hloc = bhz_setup(workdir, prec)
         fused.launches = fused.pair_launches = 0
+        fused.pair_shapes.clear()
         lanczos.f64_fallbacks = 0
         torch.cuda.synchronize()
         t0 = time.time()
@@ -488,6 +544,7 @@ def phase_bhz_solve(workdir):
             dens=solver.dens(), seconds=time.time() - t0,
             stages_s=dict(solver.timers.totals),
             pair_launches=fused.pair_launches,
+            pair_shapes=Counter(fused.pair_shapes),
             real_launches=fused.launches,
             f64_fallbacks=lanczos.f64_fallbacks)
     mx, f64 = out["mixed"], out["complex128"]
@@ -511,6 +568,8 @@ def phase_bhz_solve(workdir):
           "stages_s": {k: r["stages_s"] for k, r in out.items()},
           "fused_pair_matvec_launches": {k: r["pair_launches"]
                                          for k, r in out.items()},
+          "pair_launches_by_shape": top_shapes(mx["pair_shapes"]),
+          "pair_kernel_over_the_mix": pair_mix(mx["pair_shapes"]),
           "fused_real_matvec_launches": {k: r["real_launches"]
                                          for k, r in out.items()},
           "f64_fallbacks": mx["f64_fallbacks"],
@@ -543,6 +602,7 @@ def phase_bhz_loop(workdir, loops, profile=False):
             mark[0] = now
 
     fused.launches = fused.pair_launches = 0
+    fused.pair_shapes.clear()
     lanczos.f64_fallbacks = 0
     res, wall = traced(profile, "bhz_loop", lambda: run_dmft_loop(
         solver, hk, hloc, bath, wmixing=0.5, log=loop_log, max_loops=loops))
@@ -559,6 +619,7 @@ def phase_bhz_loop(workdir, loops, profile=False):
           "egs_per_iteration": [r["egs"] for r in per_loop],
           "density": float(np.sum(solver.dens())), "wall_s": wall,
           "per_loop": per_loop, "fused_pair_matvec_launches": pair_launches,
+          "pair_launches_by_shape": top_shapes(fused.pair_shapes),
           "fused_real_matvec_launches": launches, "checks": checks})
     if not all(checks.values()):
         fail("bhz_loop", f"checks failed: {checks}")

@@ -21,10 +21,12 @@ def card():
 
 
 def tf32_round(a):
-    """``a`` (float32) with every float rounded to TF32's 10-bit mantissa,
-    to nearest (chip_smoke.py's control)."""
-    i = a.contiguous().view(torch.int32)
-    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+    """``a`` (float32 or complex64) with every float rounded to TF32's
+    10-bit mantissa, to nearest (chip_smoke.py's control)."""
+    f = torch.view_as_real(a) if a.is_complex() else a
+    i = f.contiguous().view(torch.int32)
+    r = ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.view_as_complex(r) if a.is_complex() else r
 
 
 @pytest.mark.cuda
@@ -82,15 +84,13 @@ def test_shared_operator_and_f32_dispatch(card):
         <= 2e-4 * float(y64.abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,d,u,shared", [(0, 1024, 1024, False),
-                                          (4, 924, 924, False),
-                                          (0, 66, 220, False),
-                                          (3, 12, 66, True)])
-def test_pair_kernel_matches_plain(card, b, d, u, shared):
-    """The complex kernel against its plain version, to the JAX package's
-    bound for its complex Pallas kernel (1e-3 of the largest entry)."""
-    rng = np.random.default_rng(13)
+def _check_pair(card, seed, b, d, u, shared, offset=0):
+    """The complex kernel against its plain version on seeded inputs: the
+    JAX package's bound for its complex Pallas kernel (1e-3 of the largest
+    entry), and a tenth of the error that TF32-rounded inputs give (IEEE
+    f32, never TF32).  ``offset``: x lies that many elements into a larger
+    buffer."""
+    rng = np.random.default_rng(seed)
     lead = (b,) if b and not shared else ()
     xlead = (b,) if b else ()
 
@@ -100,13 +100,43 @@ def test_pair_kernel_matches_plain(card, b, d, u, shared):
 
     diag = torch.as_tensor(rng.normal(size=lead + (d, u)).astype(
         np.float32), device=card)
-    args = (diag, c(*lead, d, d), c(*lead, u, u), c(*xlead, d, u))
+    hdw, hupT, x = c(*lead, d, d), c(*lead, u, u), c(*xlead, d, u)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=card)
+        x = buf[offset:].view(x.shape).copy_(x)
+    args = (diag, hdw, hupT, x)
     n0 = fused.pair_launches
     out = fused.fused_pair_matvec(*args)
     torch.cuda.synchronize()
     assert fused.pair_launches == n0 + 1
     ref = fused.fused_pair_matvec_ref(*args)
-    assert float((out - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    tf32 = float((fused.fused_pair_matvec_ref(*map(tf32_round, args))
+                  - ref).abs().max())
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert err <= 1e-3 * float(ref.abs().max())
+    assert err <= 0.1 * tf32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,shared", [(0, False), (1, False), (3, False),
+                                      (9, False), (1, True), (3, True),
+                                      (9, True)])
+@pytest.mark.parametrize("d,u", [(1, 1), (12, 66), (7, 33), (924, 924),
+                                 (1024, 1024)])
+def test_pair_kernel_matches_plain(card, b, d, u, shared):
+    """The complex kernel at the unbucketed (1, 12x66: the cluster pair),
+    odd-U (7x33: one complex value per copy) and bucketed shapes,
+    unbatched and at B = 1, 3, 9, with per-member or shared (batch stride
+    0) operators."""
+    _check_pair(card, 13, b, d, u, shared)
+
+
+@pytest.mark.cuda
+def test_pair_kernel_misaligned_x(card):
+    """x one element into a larger buffer, so not 16-byte aligned: the
+    kernel copies one complex value at a time and agrees as well."""
+    _check_pair(card, 15, 3, 924, 924, False, offset=1)
 
 
 @pytest.mark.cuda
@@ -220,10 +250,8 @@ def test_blk_spmm_matches_plain(card, kind, m, n, empty_band):
     err = float((y - ref).abs().max())
     assert err <= BLK_TOL[kind] * float(ref.abs().max())
     if kind in ("f32", "c64"):
-        def rnd(a):
-            return torch.view_as_complex(tf32_round(torch.view_as_real(a))) \
-                if a.is_complex() else tf32_round(a)
-        tf32 = float((large.blk_spmm_ref(rb, cb, rnd(tiles), rnd(xt), f.nb)
+        tf32 = float((large.blk_spmm_ref(rb, cb, tf32_round(tiles),
+                                         tf32_round(xt), f.nb)
                       - ref).abs().max())
         assert err <= 0.1 * tf32
 
