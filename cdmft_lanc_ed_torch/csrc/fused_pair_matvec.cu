@@ -81,27 +81,17 @@ namespace {
 constexpr int BK = 16;               // complex contraction depth per stage
 constexpr int STAGES = 4;            // shared-memory ring
 constexpr int AS = 2 * BK + 4;       // padded A-row stride, in floats
-// Below one block per SM (B = 1 on 512²) the two products go to a cluster
-// pair; from one block per SM up (B = 1 on 1024²: 256 tiles) the plain
-// grid was faster on an H100.
-constexpr int SPLIT_BELOW = 1;
-
-// A block of RG x CG threads computes a (TM·RG) x (TN·CG) complex output
-// tile, each thread TM rows (RG apart) by TN columns (pairs of adjacent
-// columns, 2·CG apart).
-template <int TM_, int TN_, int RG_, int CG_>
-struct Shape {
-  static constexpr int TM = TM_, TN = TN_, RG = RG_, CG = CG_;
-  static constexpr int NT = RG * CG;
-  static constexpr int BM = TM * RG, BN = TN * CG;
-  static_assert(RG % 4 == 0 && CG % 8 == 0 && TN % 2 == 0, "warp layout");
-};
 // 64x64 tiles, 8x4 per thread, 128 threads, two blocks per SM (~240
 // registers).  On an H100 it beat 128x64 over 256 threads (8x4, one block
 // per SM), 128x32 over 128 threads, 64x32 over 64 threads, 64x64 over 256
 // threads (4x4), and 3-4 blocks per SM (6x4 or 4x4 per thread, or 8x4
-// spilling) at B = 1, 4 and 9 on the 1024 bucket.
-using Tiling = Shape<8, 4, 8, 16>;
+// spilling) at B = 1, 4 and 9 on the 1024 bucket.  A block of RG x CG
+// threads computes a BM x BN complex output tile, each thread TM rows (RG
+// apart) by TN columns (pairs of adjacent columns, 2·CG apart).
+constexpr int TM = 8, TN = 4, RG = 8, CG = 16;
+constexpr int NT = RG * CG;          // threads per block
+constexpr int BM = TM * RG, BN = TN * CG;
+static_assert(RG % 4 == 0 && CG % 8 == 0 && TN % 2 == 0, "warp layout");
 constexpr int MIN_BLOCKS = 2;        // blocks per SM the registers allow
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -134,13 +124,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// S: the tile shape; VEC: complex values per cp.async (2, or 1 where rows
-// are not 16-byte aligned).  A stage holds the interleaved A tile
-// [BM][AS floats] and B tile [BK][2·BN floats].
-template <class S, int VEC>
+// VEC: complex values per cp.async (2, or 1 where rows are not 16-byte
+// aligned).  A stage holds the interleaved A tile [BM][AS floats] and B
+// tile [BK][2·BN floats].
+template <int VEC>
 struct Tile {
-  static constexpr int A_FLOATS = S::BM * AS;
-  static constexpr int B_FLOATS = BK * 2 * S::BN;
+  static constexpr int A_FLOATS = BM * AS;
+  static constexpr int B_FLOATS = BK * 2 * BN;
   static constexpr int STAGE = A_FLOATS + B_FLOATS;
   static constexpr size_t SMEM = sizeof(float) * STAGES * STAGE;
 
@@ -149,23 +139,22 @@ struct Tile {
   static __device__ __forceinline__ void load(
       const float2* __restrict__ A, const float2* __restrict__ B, int M,
       int N, int K, int row0, int col0, int k0, float* As, float* Bs) {
-    constexpr int CA = S::BM * BK / VEC, CB = BK * S::BN / VEC;
+    constexpr int CA = BM * BK / VEC, CB = BK * BN / VEC;
+    static_assert(CA % NT == 0 && CB % NT == 0, "whole copies per thread");
 #pragma unroll
-    for (int q = 0; q < (CA + S::NT - 1) / S::NT; ++q) {
-      const int c = threadIdx.x + q * S::NT;
-      if (CA % S::NT && c >= CA) break;
+    for (int q = 0; q < CA / NT; ++q) {
+      const int c = threadIdx.x + q * NT;
       const int r = c / (BK / VEC), k = (c % (BK / VEC)) * VEC;
       const bool ok = row0 + r < M && k0 + k < K;
       cp_async<8 * VEC>(As + r * AS + 2 * k,
                         ok ? A + (size_t)(row0 + r) * K + k0 + k : A, ok);
     }
 #pragma unroll
-    for (int q = 0; q < (CB + S::NT - 1) / S::NT; ++q) {
-      const int c = threadIdx.x + q * S::NT;
-      if (CB % S::NT && c >= CB) break;
-      const int k = c / (S::BN / VEC), j = (c % (S::BN / VEC)) * VEC;
+    for (int q = 0; q < CB / NT; ++q) {
+      const int c = threadIdx.x + q * NT;
+      const int k = c / (BN / VEC), j = (c % (BN / VEC)) * VEC;
       const bool ok = k0 + k < K && col0 + j < N;
-      cp_async<8 * VEC>(Bs + k * 2 * S::BN + 2 * j,
+      cp_async<8 * VEC>(Bs + k * 2 * BN + 2 * j,
                         ok ? B + (size_t)(k0 + k) * N + col0 + j : B, ok);
     }
   }
@@ -176,16 +165,15 @@ struct Tile {
 // even, odd) run H_dw · X and X · H_upᵀ for the same tile, each through its
 // own ring; the odd block leaves its (Re, Im) in its shared memory and the
 // even one adds them through distributed shared memory and writes the tile.
-template <class S, int VEC, int SPLIT>
-__global__ void __launch_bounds__(S::NT, MIN_BLOCKS) fused_pair_matvec_kernel(
+template <int VEC, int SPLIT>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS) fused_pair_matvec_kernel(
     const float* __restrict__ diag, const float2* __restrict__ hdw,
     const float2* __restrict__ hupT, const float2* __restrict__ x,
     float2* __restrict__ out, int D, int U, long long sb_diag,
     long long sb_hdw, long long sb_hupT) {
-  using T = Tile<S, VEC>;
-  constexpr int TM = S::TM, TN = S::TN, RG = S::RG;
-  constexpr int CSTEP = 2 * S::CG;   // columns between a thread's pairs
-  static_assert(SPLIT == 1 || 2 * TM * TN * S::NT <= STAGES * T::STAGE,
+  using T = Tile<VEC>;
+  constexpr int CSTEP = 2 * CG;   // columns between a thread's pairs
+  static_assert(SPLIT == 1 || 2 * TM * TN * NT <= STAGES * T::STAGE,
                 "the ring holds the partner's (Re, Im)");
   extern __shared__ __align__(16) float smem[];
   const long long b = blockIdx.z;
@@ -197,13 +185,13 @@ __global__ void __launch_bounds__(S::NT, MIN_BLOCKS) fused_pair_matvec_kernel(
   out += b * du;
 
   const int part = SPLIT == 2 ? (int)(blockIdx.x & 1) : 0;
-  const int row0 = blockIdx.y * S::BM;
-  const int col0 = (blockIdx.x / SPLIT) * S::BN;
+  const int row0 = blockIdx.y * BM;
+  const int col0 = (blockIdx.x / SPLIT) * BN;
   // a warp covers 4 row groups x 8 column groups: its A loads hit 4
   // consecutive rows (distinct banks), its B loads 8 consecutive pairs
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ty = (warp / (S::CG / 8)) * 4 + (lane >> 3);
-  const int tx = (warp % (S::CG / 8)) * 8 + (lane & 7);
+  const int ty = (warp / (CG / 8)) * 4 + (lane >> 3);
+  const int tx = (warp % (CG / 8)) * 8 + (lane & 7);
 
   // k-tiles: H_dw · X (K = D), then X · H_upᵀ (K = U); this block's run
   // [s_lo, s_hi) of them
@@ -251,7 +239,7 @@ __global__ void __launch_bounds__(S::NT, MIN_BLOCKS) fused_pair_matvec_kernel(
 #pragma unroll
         for (int h = 0; h < TN / 2; ++h) {
           const float4 q = *reinterpret_cast<const float4*>(
-              Bs + (kk + k) * 2 * S::BN + 2 * (tx * 2 + h * CSTEP));
+              Bs + (kk + k) * 2 * BN + 2 * (tx * 2 + h * CSTEP));
           br[2 * h] = q.x;
           bi[2 * h] = q.y;
           br[2 * h + 1] = q.z;
@@ -304,8 +292,8 @@ __global__ void __launch_bounds__(S::NT, MIN_BLOCKS) fused_pair_matvec_kernel(
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          smem[(2 * (i * TN + j)) * S::NT + threadIdx.x] = p1[i][j];
-          smem[(2 * (i * TN + j) + 1) * S::NT + threadIdx.x] = p3[i][j];
+          smem[(2 * (i * TN + j)) * NT + threadIdx.x] = p1[i][j];
+          smem[(2 * (i * TN + j) + 1) * NT + threadIdx.x] = p3[i][j];
         }
     }
     pair.sync();
@@ -315,8 +303,8 @@ __global__ void __launch_bounds__(S::NT, MIN_BLOCKS) fused_pair_matvec_kernel(
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          p1[i][j] += other[(2 * (i * TN + j)) * S::NT + threadIdx.x];
-          p3[i][j] += other[(2 * (i * TN + j) + 1) * S::NT + threadIdx.x];
+          p1[i][j] += other[(2 * (i * TN + j)) * NT + threadIdx.x];
+          p3[i][j] += other[(2 * (i * TN + j) + 1) * NT + threadIdx.x];
         }
     }
     pair.sync();       // the odd block's shared memory is read
@@ -354,13 +342,13 @@ __global__ void __launch_bounds__(S::NT, MIN_BLOCKS) fused_pair_matvec_kernel(
 
 constexpr int MAX_DEVICES = 64;
 
-template <class S, int VEC, int SPLIT>
+template <int VEC, int SPLIT>
 int launch(const float* diag, const float2* hdw, const float2* hupT,
            const float2* x, float2* out, int batch, int D, int U,
            long long sb_diag, long long sb_hdw, long long sb_hupT,
            cudaStream_t stream, int dev) {
-  using T = Tile<S, VEC>;
-  auto kernel = fused_pair_matvec_kernel<S, VEC, SPLIT>;
+  using T = Tile<VEC>;
+  auto kernel = fused_pair_matvec_kernel<VEC, SPLIT>;
   // a ring above 48 KB needs the opt-in, set once per device
   static std::atomic<bool> opted_in[MAX_DEVICES];
   if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
@@ -372,9 +360,9 @@ int launch(const float* diag, const float2* hdw, const float2* hupT,
     opted_in[dev].store(true, std::memory_order_release);
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(SPLIT * ((U + S::BN - 1) / S::BN),
-                     (D + S::BM - 1) / S::BM, batch);
-  cfg.blockDim = dim3(S::NT);
+  cfg.gridDim = dim3(SPLIT * ((U + BN - 1) / BN),
+                     (D + BM - 1) / BM, batch);
+  cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = T::SMEM;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -395,9 +383,7 @@ int launch(const float* diag, const float2* hdw, const float2* hupT,
 // C entry point (bound with ctypes).  Launches on ``stream`` and returns
 // the cudaError_t of the launch (0 on success); it never synchronises.
 // 16-byte copies where D and U are even and every pointer is 16-byte
-// aligned, else one complex value per copy; the cluster pair where the
-// tiles alone would give fewer than SPLIT_BELOW blocks per SM (B = 1 at
-// 512²).  Complex pointers must be 8-byte aligned (every complex64
+// aligned, else one complex value per copy.  Complex pointers must be 8-byte aligned (every complex64
 // tensor's are).
 extern "C" int fused_pair_matvec_c64(
     const float* diag, const void* hdw, const void* hupT, const void* x,
@@ -419,16 +405,18 @@ extern "C" int fused_pair_matvec_c64(
   const bool vec = D % 2 == 0 && U % 2 == 0 &&
                    (cplx | (uintptr_t)diag) % 16 == 0;
   if (!vec)
-    return launch<Tiling, 1, 1>(diag, h, t, v, o, batch, D, U, sb_diag,
-                                sb_hdw, sb_hupT, s, dev);
+    return launch<1, 1>(diag, h, t, v, o, batch, D, U, sb_diag, sb_hdw,
+                        sb_hupT, s, dev);
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  const long long tiles = (long long)batch *
-                          ((D + Tiling::BM - 1) / Tiling::BM) *
-                          ((U + Tiling::BN - 1) / Tiling::BN);
-  if (tiles < (long long)SPLIT_BELOW * sms)
-    return launch<Tiling, 2, 2>(diag, h, t, v, o, batch, D, U, sb_diag,
-                                sb_hdw, sb_hupT, s, dev);
-  return launch<Tiling, 2, 1>(diag, h, t, v, o, batch, D, U, sb_diag,
-                              sb_hdw, sb_hupT, s, dev);
+  const long long tiles =
+      (long long)batch * ((D + BM - 1) / BM) * ((U + BN - 1) / BN);
+  // Below one tile per SM (B = 1 on 512²: 64 tiles) the two products go
+  // to a cluster pair; from there up (B = 1 on 1024²: 256 tiles) the plain
+  // grid was faster on an H100.
+  if (tiles < sms)
+    return launch<2, 2>(diag, h, t, v, o, batch, D, U, sb_diag, sb_hdw,
+                        sb_hupT, s, dev);
+  return launch<2, 1>(diag, h, t, v, o, batch, D, U, sb_diag, sb_hdw,
+                      sb_hupT, s, dev);
 }

@@ -206,6 +206,25 @@ def tf32_round(a):
     return torch.view_as_complex(r) if a.is_complex() else r
 
 
+def check_kernel(kernel, plain, args, rel_tol):
+    """``kernel`` against ``plain`` on ``args``: finite, within ``rel_tol``
+    of max|plain| and within a tenth of the error of a product whose inputs
+    were rounded to TF32, the tensor cores' f32 mode (IEEE f32 stays 10x
+    below it).  Returns the check's record; its ``ok`` says whether it
+    held."""
+    import torch
+    out = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    tf32_err = float((plain(*map(tf32_round, args)) - ref).abs().max())
+    ok = bool(torch.isfinite(out).all()) and err <= rel_tol * scale \
+        and err <= 0.1 * tf32_err
+    return {"max_abs_err": err, "max_abs_ref": scale,
+            "tf32_control_err": tf32_err, "ok": ok}
+
+
 def kernel_phase(name, peaks, complex_, shapes, rel_tol, tol_text):
     """Check kernel ``name`` (fused_real_matvec or fused_pair_matvec)
     against its plain version at ``shapes`` [(B, D, U, shared_op[,
@@ -241,28 +260,16 @@ def kernel_phase(name, peaks, complex_, shapes, rel_tol, tol_text):
     checks = []
     worst = 0.0
     for b, d, u, shared, *offset in shapes:
-        args = problem(b, d, u, shared, *offset)
-        out = kernel(*args)
-        torch.cuda.synchronize()
-        ref = plain(*args)
-        err = float((out - ref).abs().max())
-        scale = float(ref.abs().max())
-        # control: the error of a product whose inputs were rounded to
-        # TF32, the tensor cores' f32 mode; IEEE f32 stays 10x below it
-        tf32_err = float((plain(*map(tf32_round, args)) - ref).abs().max())
-        ok = bool(torch.isfinite(out).all()) and err <= rel_tol * scale \
-            and err <= 0.1 * tf32_err
+        rec = check_kernel(kernel, plain, problem(b, d, u, shared, *offset),
+                           rel_tol)
         checks.append({"shape": [b or 1, d, u], "shared_operator": shared,
-                       "x_offset": offset[0] if offset else 0,
-                       "max_abs_err": err, "max_abs_ref": scale,
-                       "tf32_control_err": tf32_err, "ok": ok})
-        worst = max(worst, err)
-        if not ok:
+                       "x_offset": offset[0] if offset else 0, **rec})
+        worst = max(worst, rec["max_abs_err"])
+        if not rec["ok"]:
             emit({"phase": phase, "tolerance": tol_text + TF32_TOL,
                   "checks": checks})
             fail(phase, f"{name} disagrees with its plain version at "
-                        f"{(b, d, u)}: error {err}, max|plain| {scale}, "
-                        f"TF32 control {tf32_err}")
+                        f"{(b, d, u)}: {rec}")
     timings = []
     for b in (1, 4, 9):
         d = u = 1024
@@ -293,15 +300,21 @@ def phase_kernel(peaks):
 
 
 def phase_pair_kernel(peaks):
-    # The kernel's paths: 16-byte copies (B = 1 and 4 at 1024², 924²), the
-    # cluster pair (fewer tiles than SMs: B = 1 at 512², 66x220, 3 x 12x66)
-    # and one complex value per copy (odd U: 7x33; x one element into a
-    # buffer, so not 16-byte aligned).
+    # The kernel's paths: 16-byte copies (B = 1, 4 and 9 at 1024², 924²),
+    # the cluster pair (fewer tiles than SMs: B = 1 at 512², 66x220, 3 x
+    # 12x66) and one complex value per copy (odd U: 7x33; x one element
+    # into a buffer, so not 16-byte aligned); and shapes the BHZ solve
+    # launches most, among them 4 x 256² and 4 x 128² (the cluster pair
+    # over several row tiles; 66x220's last row tile is ragged).
+    # phase_bhz_solve checks every shape the solve launched.
     return kernel_phase(
         "fused_pair_matvec", peaks, True,
         ((4, 1024, 1024, False), (1, 1024, 1024, False),
-         (4, 924, 924, False), (1, 512, 512, False), (0, 66, 220, False),
-         (3, 12, 66, True), (3, 7, 33, False), (0, 924, 924, False, 1)),
+         (9, 1024, 1024, False), (4, 924, 924, False),
+         (1, 512, 512, False), (0, 66, 220, False), (3, 12, 66, True),
+         (3, 7, 33, False), (0, 924, 924, False, 1),
+         (6, 1024, 128, False), (6, 12, 1024, False),
+         (4, 256, 256, False), (4, 128, 128, False)),
         1e-3, PAIR_TOL)
 
 
@@ -312,10 +325,12 @@ def top_shapes(counter, n=5):
 
 
 def pair_mix(counter):
-    """The complex kernel and the library call timed over a launch mix
-    {(B, D, U): launches}: seconds summed over every launch (per-member
-    operators, unit-normal inputs), and ms per launch of the five most
-    frequent shapes.  Launches made here are not counted by the caller."""
+    """The complex kernel checked against its plain version (as
+    ``phase_pair_kernel`` checks it) and timed with the library call over a
+    launch mix {(B, D, U): launches}: seconds summed over every launch
+    (per-member operators, unit-normal inputs), ms per launch of the five
+    most frequent shapes, the worst error and the shapes that failed their
+    check.  Launches made here are not counted by the caller."""
     import torch
     from cdmft_lanc_ed_torch.ops import fused
     rng = np.random.default_rng(7)
@@ -326,11 +341,17 @@ def pair_mix(counter):
         return torch.as_tensor(a.astype(np.complex64)).to(dev)
 
     total = {"kernel_s": 0.0, "library_s": 0.0}
-    top = []
+    top, failed, worst = [], [], 0.0
     for (b, d, u), n in counter.most_common():
         diag = torch.as_tensor(rng.normal(size=(b, d, u)).astype(
             np.float32)).to(dev)
         hdw, hupT, x = c(b, d, d), c(b, u, u), c(b, d, u)
+        rec = check_kernel(fused.fused_pair_matvec,
+                           fused.fused_pair_matvec_ref,
+                           (diag, hdw, hupT, x), 1e-3)
+        worst = max(worst, rec["max_abs_err"] / rec["max_abs_ref"])
+        if not rec["ok"]:
+            failed.append({"shape": [b, d, u], **rec})
         ms = time_ms(lambda: fused.fused_pair_matvec(diag, hdw, hupT, x))
         lib = time_ms(lambda: torch.addcmul(torch.matmul(hdw, x), diag, x)
                       + torch.matmul(x, hupT))
@@ -341,7 +362,7 @@ def pair_mix(counter):
                         "library_ms": lib})
     return {"launches": sum(counter.values()), "shapes": len(counter),
             **total, "library_ratio": total["kernel_s"] / total["library_s"],
-            "top": top}
+            "top": top, "worst_rel_err": worst, "failed_checks": failed}
 
 
 def plaquette_hloc():
@@ -548,6 +569,7 @@ def phase_bhz_solve(workdir):
             real_launches=fused.launches,
             f64_fallbacks=lanczos.f64_fallbacks)
     mx, f64 = out["mixed"], out["complex128"]
+    mix = pair_mix(mx["pair_shapes"])
     sig_err = float(np.abs(mx["sigma"] - f64["sigma"]).max()
                     / np.abs(f64["sigma"]).max())
     checks = {
@@ -557,7 +579,8 @@ def phase_bhz_solve(workdir):
         "sigma_mixed_vs_f64": sig_err < 5e-5,
         "time_reversal": all(tr_gap(r["sigma"]) < TR_TOL
                              for r in out.values()),
-        "kernel_launched": mx["pair_launches"] > 0}
+        "kernel_launched": mx["pair_launches"] > 0,
+        "kernel_matches_plain_over_the_mix": not mix["failed_checks"]}
     emit({"phase": "bhz_solve",
           "egs": {k: r["egs"] for k, r in out.items()},
           "egs_diff": abs(mx["egs"] - f64["egs"]),
@@ -569,7 +592,7 @@ def phase_bhz_solve(workdir):
           "fused_pair_matvec_launches": {k: r["pair_launches"]
                                          for k, r in out.items()},
           "pair_launches_by_shape": top_shapes(mx["pair_shapes"]),
-          "pair_kernel_over_the_mix": pair_mix(mx["pair_shapes"]),
+          "pair_kernel_over_the_mix": mix,
           "fused_real_matvec_launches": {k: r["real_launches"]
                                          for k, r in out.items()},
           "f64_fallbacks": mx["f64_fallbacks"],

@@ -122,13 +122,14 @@ def _check_pair(card, seed, b, d, u, shared, offset=0):
 @pytest.mark.parametrize("b,shared", [(0, False), (1, False), (3, False),
                                       (9, False), (1, True), (3, True),
                                       (9, True)])
-@pytest.mark.parametrize("d,u", [(1, 1), (12, 66), (7, 33), (924, 924),
-                                 (1024, 1024)])
+@pytest.mark.parametrize("d,u", [(1, 1), (12, 66), (7, 33), (66, 220),
+                                 (256, 256), (924, 924), (1024, 1024)])
 def test_pair_kernel_matches_plain(card, b, d, u, shared):
-    """The complex kernel at the unbucketed (1, 12x66: the cluster pair),
-    odd-U (7x33: one complex value per copy) and bucketed shapes,
-    unbatched and at B = 1, 3, 9, with per-member or shared (batch stride
-    0) operators."""
+    """The complex kernel at the unbucketed (1, 12x66, 66x220: the cluster
+    pair, 66x220 over two row tiles, the second ragged), odd-U (7x33: one
+    complex value per copy) and bucketed shapes (256² below B = 9: the
+    cluster pair over four row tiles), unbatched and at B = 1, 3, 9, with
+    per-member or shared (batch stride 0) operators."""
     _check_pair(card, 13, b, d, u, shared)
 
 
