@@ -11,7 +11,7 @@ its gradient from them.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -68,6 +68,51 @@ def set_hbath(basis, lambdas, cfg: EDConfig) -> BathBasis:
         raise ValueError(f"lambda array shape {lambdas.shape} != "
                          f"({cfg.nbath}, {basis.shape[0]})")
     return BathBasis(basis=basis, init_lambda=lambdas.copy())
+
+
+def hbath_basis_from_hloc(hloc, cfg: EDConfig) -> BathBasis:
+    """ed_set_Hbath direct variant (hbath_setup.f90:34-159): one basis matrix
+    per independent nonzero Re/Im entry of the provided Hloc (upper triangle
+    in lso indexing), initial lambda = the entry value."""
+    hloc = np.asarray(hloc, dtype=np.complex128)
+    nlat, nspin, norb = cfg.nlat, cfg.nspin, cfg.norb
+    basis_list: List[np.ndarray] = []
+    lam0: List[float] = []
+
+    def stride(ilat, ispin, iorb):
+        return iorb + ilat * norb + ispin * norb * nlat
+
+    for ispin in range(nspin):
+        for jspin in range(nspin):
+            for ilat in range(nlat):
+                for jlat in range(nlat):
+                    for iorb in range(norb):
+                        for jorb in range(norb):
+                            io = stride(ilat, ispin, iorb)
+                            jo = stride(jlat, jspin, jorb)
+                            if io > jo:
+                                continue
+                            val = hloc[ilat, jlat, ispin, jspin, iorb, jorb]
+                            if val == 0:
+                                continue
+                            if val.real != 0.0:
+                                o = np.zeros_like(hloc)
+                                o[ilat, jlat, ispin, jspin, iorb, jorb] = 1.0
+                                if io != jo:
+                                    o[jlat, ilat, jspin, ispin, jorb, iorb] = 1.0
+                                basis_list.append(o)
+                                lam0.append(val.real)
+                            if val.imag != 0.0:
+                                o = np.zeros_like(hloc)
+                                o[ilat, jlat, ispin, jspin, iorb, jorb] = 1j
+                                if io != jo:
+                                    o[jlat, ilat, jspin, ispin, jorb, iorb] = -1j
+                                basis_list.append(o)
+                                lam0.append(val.imag)
+    basis = np.stack(basis_list) if basis_list else \
+        np.zeros((0,) + hloc.shape, np.complex128)
+    lam = np.tile(np.asarray(lam0), (cfg.nbath, 1))
+    return BathBasis(basis=basis, init_lambda=lam)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +262,60 @@ def read_dmft_bath(cfg: EDConfig, nsym: int, path: str) -> DmftBath:
         lam[ib, :ndec[ib]] = lvals[:ndec[ib]]
         p += 1
     return DmftBath(v=v, lam=lam)
+
+
+# ---------------------------------------------------------------------------
+# user symmetry helpers (ED_BATH/user_aux.f90:112-157) + Hbath_mask
+# ---------------------------------------------------------------------------
+
+def impose_equal_lambda(cfg: EDConfig, bath_array, ibath: int,
+                        lambda_indices) -> np.ndarray:
+    """Average the chosen lambda components of replica ``ibath`` (0-based)
+    and set them all to the average (impose_equal_lambda,
+    user_aux.f90:112-133)."""
+    bath = unpack_dmft_bath(cfg, bath_array)
+    idx = np.asarray(lambda_indices, dtype=int)
+    val = bath.lam[ibath, idx].mean()
+    bath.lam[ibath, idx] = val
+    return pack_dmft_bath(cfg, bath)
+
+
+def impose_bath_offset(cfg: EDConfig, bath_array, ibath: int,
+                       offset: float) -> np.ndarray:
+    """Set the identity-like lambda component of replica ``ibath`` to
+    ``offset`` (impose_bath_offset, user_aux.f90:136-157): applied to the
+    component whose basis matrix is proportional to the identity."""
+    bath = unpack_dmft_bath(cfg, bath_array)
+    bath.lam[ibath, -1] = offset
+    return pack_dmft_bath(cfg, bath)
+
+
+def hbath_mask(cfg: EDConfig, hb: BathBasis, wdiag: bool = False,
+               uplo: bool = False) -> np.ndarray:
+    """Boolean mask of nonzero bath-Hamiltonian components
+    (Hbath_mask, ED_BATH/hbath_setup.f90:258-299)."""
+    mask = np.zeros((cfg.nlat, cfg.nlat, cfg.nspin, cfg.nspin,
+                     cfg.norb, cfg.norb), dtype=bool)
+    for s in range(hb.nsym):
+        mask |= hb.basis[s] != 0
+    if wdiag:
+        for il in range(cfg.nlat):
+            for sp in range(cfg.nspin):
+                for io in range(cfg.norb):
+                    mask[il, il, sp, sp, io, io] = True
+    if uplo:
+        nlat, nspin, norb = cfg.nlat, cfg.nspin, cfg.norb
+        for il in range(nlat):
+            for jl in range(nlat):
+                for sp in range(nspin):
+                    for so in range(nspin):
+                        for io in range(norb):
+                            for jo in range(norb):
+                                i = io + il * norb + sp * norb * nlat
+                                j = jo + jl * norb + so * norb * nlat
+                                if i > j:
+                                    mask[il, jl, sp, so, io, jo] = False
+    return mask
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,11 @@
 drivers/cdn_hm_2dsquare.f90:119-198):
 
     solve -> Sigma -> G_loc(k-sum) -> Weiss/Delta -> chi2 fit -> mix ->
-    convergence -> repeat
+    convergence / mu-search -> repeat
 
-Everything runs on the solver's device.  The chemical-potential search
-(``nread != 0``) is a later slice.
+Everything runs on the solver's device.  With ``nread != 0`` the
+chemical-potential search moves ``cfg.xmu`` after each iteration; the
+next solve builds its sector operators at the new mu.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 
 from . import bath as bath_mod
 from .fit import chi2_fitgf
-from .lattice import ConvergenceCheck, dmft_gloc_matsubara, \
+from .lattice import ConvergenceCheck, MuSearch, dmft_gloc_matsubara, \
     dmft_self_consistency
 from .solver import EDSolver
 
@@ -47,13 +48,14 @@ def run_dmft_loop(solver: EDSolver, hk: np.ndarray, hloc_nnn: np.ndarray,
     after two consecutive improvements it relaxes back toward the
     initial value."""
     cfg = solver.cfg
-    if cfg.nread != 0.0:
-        raise NotImplementedError(
-            "the chemical-potential search (nread != 0) is not ported yet "
-            "(ROADMAP Queue 1: MuSearch)")
     device = solver.device
     nloop = max_loops if max_loops is not None else cfg.nloop
     conv = ConvergenceCheck(cfg.dmft_error, cfg.nsuccess)
+    mu_search = MuSearch(cfg.nread, cfg.ndelta, cfg.nerr,
+                         niter=max(1, cfg.nloop // 3),
+                         work_dir=cfg.work_dir,
+                         suffix=cfg.ed_file_suffix) \
+        if cfg.nread != 0.0 else None
     bath = bath_mod.pack_dmft_bath(cfg, bath_mod.unpack_dmft_bath(cfg, bath))
     bath_prev = None
     gloc = weiss = None
@@ -102,6 +104,13 @@ def run_dmft_loop(solver: EDSolver, hk: np.ndarray, hloc_nnn: np.ndarray,
                     wmixing = min(wmix0, 1.5 * wmixing)
                     improve_streak = 0
         prev_err = err
+
+        if mu_search is not None:
+            dens = float(solver.dens().sum())
+            new_mu, done = mu_search.step(cfg.xmu, dens, converged=done)
+            if new_mu != cfg.xmu:
+                log(f"  mu: {cfg.xmu:.6f} -> {new_mu:.6f} (n={dens:.6f})")
+                cfg.xmu = new_mu
         if done:
             return DMFTResult(True, it, err, bath, solver, gloc, weiss)
     return DMFTResult(False, it, err, bath, solver, gloc, weiss)

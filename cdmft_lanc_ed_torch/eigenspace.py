@@ -69,6 +69,10 @@ class StateList:
     def __getitem__(self, i):
         return self.states[i]
 
+    def gs_degeneracy(self, threshold: float) -> int:
+        return sum(1 for s in self.states
+                   if abs(s.energy - self.emin) < threshold)
+
     # -- mutation ---------------------------------------------------------
     def free(self):
         self.states.clear()

@@ -52,6 +52,10 @@ def realaxis_grid(cfg: EDConfig) -> np.ndarray:
     return np.linspace(cfg.wini, cfg.wfin, cfg.lreal)
 
 
+def tau_grid(cfg: EDConfig) -> np.ndarray:
+    return np.linspace(0.0, cfg.beta, cfg.ltau)
+
+
 # ---------------------------------------------------------------------------
 # pole/weight spectrum store (GFmatrix type, ED_VARS_GLOBAL.f90:76-100)
 # ---------------------------------------------------------------------------
@@ -101,6 +105,24 @@ class GFSpectrum:
             return np.zeros(len(z), np.complex128)
         zz = np.asarray(z)[:, None]
         return np.sum(w[None, :] / (zz - p[None, :]), axis=1)
+
+    def evaluate_tau(self, key, tau: np.ndarray, beta: float) -> np.ndarray:
+        """Imaginary-time G(tau), 0 <= tau <= beta, from the Lehmann poles:
+        G(tau) = -sum_k w_k e^{-tau p_k} / (1 + e^{-beta p_k}),
+        evaluated in the overflow-safe branch per pole sign."""
+        p, w = self.flat(key)
+        if len(p) == 0:
+            return np.zeros(len(tau))
+        tau = np.asarray(tau)[:, None]
+        pp = p[None, :]
+        pos = pp >= 0
+        val = np.where(
+            pos,
+            np.exp(-tau * np.where(pos, pp, 0.0))
+            / (1.0 + np.exp(-beta * np.where(pos, pp, 0.0))),
+            np.exp((beta - tau) * np.where(pos, 0.0, pp))
+            / (np.exp(beta * np.where(pos, 0.0, pp)) + 1.0))
+        return -(val * w[None, :].real).sum(axis=1)
 
 
 # ---------------------------------------------------------------------------

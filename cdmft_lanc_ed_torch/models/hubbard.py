@@ -83,6 +83,24 @@ def square_cluster_hk(nx: int, ny: int, nk: int, ts: float = 1.0,
     return np.stack(hks), hloc
 
 
+def bethe_hk(nk: int, d: float = 1.0, nspin: int = 1) -> Tuple[np.ndarray,
+                                                               np.ndarray]:
+    """Single-site semicircular-DOS stand-in via a dense energy grid
+    (useful for single-site DMFT cross-checks): returns (Hk-like array of
+    energies weighted uniformly, Hloc=0)."""
+    # sample the semicircle by inverse-CDF so a flat k-average reproduces it
+    u = (np.arange(nk) + 0.5) / nk
+    # invert CDF of rho(e)=2/(pi D^2) sqrt(D^2-e^2) numerically
+    es = np.linspace(-d, d, 4001)
+    rho = 2.0 / (np.pi * d ** 2) * np.sqrt(np.maximum(d ** 2 - es ** 2, 0))
+    cdf = np.cumsum(rho)
+    cdf /= cdf[-1]
+    ek = np.interp(u, cdf, es)
+    hk = ek.reshape(nk, 1, 1).astype(np.complex128)
+    hloc = np.zeros((1, 1, nspin, nspin, 1, 1), np.complex128)
+    return hk, hloc
+
+
 def plaquette_replica_bath(nbath: int = 3, v: float = 0.5):
     """The Ns = 4 + 4·nbath plaquette of the JAX package's large-sector
     benchmark (its ``__graft_entry__._plaquette_bath_op``; at nbath=3 the

@@ -347,6 +347,46 @@ def cluster_density_matrix(cfg: EDConfig, state: DiagState) -> np.ndarray:
     return rho
 
 
+def von_neumann_entropy(rho: np.ndarray) -> float:
+    """S = -Tr rho ln rho of a (reduced) density matrix."""
+    w = np.linalg.eigvalsh(np.asarray(rho))
+    w = w[w > 1e-14]
+    return float(-(w * np.log(w)).sum())
+
+
+def _sites_mask(cfg: EDConfig, sites) -> np.ndarray:
+    mask = np.zeros((cfg.nlat, cfg.norb), bool)
+    for s in np.atleast_1d(sites):
+        mask[int(s), :] = True
+    return mask
+
+
+def site_entanglement_entropy(cfg: EDConfig, cdm: np.ndarray,
+                              sites) -> float:
+    """Entanglement entropy of the sub-cluster RDM traced down to
+    ``sites`` (list of cluster-site indices) from the full cluster DM.
+
+    This is the Walsh et al. PRL 122, 067203 (2019) local-entropy
+    observable: s1 = -Tr rho_1 ln rho_1 with rho_1 the single-site RDM
+    (their Eq. 2; the reference reproduces their 2x2-cluster T->0
+    values, the reference's README.md:51).  The partial trace reuses the
+    fermionic-sign reduced-DM machinery (ED_IO/get_reduced_dm.f90)."""
+    from .io import get_reduced_dm
+    rho = get_reduced_dm(cfg, cdm, _sites_mask(cfg, sites))
+    return von_neumann_entropy(rho)
+
+
+def mutual_information(cfg: EDConfig, cdm: np.ndarray, site_i: int,
+                       site_j: int) -> float:
+    """Two-site mutual information I2 = s_i + s_j - s_ij from the
+    cluster DM (the pairwise correlation measure of Walsh et al. PRL
+    122, 067203 / PRB 100, 245109)."""
+    si = site_entanglement_entropy(cfg, cdm, [site_i])
+    sj = site_entanglement_entropy(cfg, cdm, [site_j])
+    sij = site_entanglement_entropy(cfg, cdm, [site_i, site_j])
+    return si + sj - sij
+
+
 def single_particle_density_matrix(cfg: EDConfig,
                                    state: DiagState) -> np.ndarray:
     """<c^+_a c_b> over impurity levels: [Nlat,Nlat,Nspin,Nspin,Norb,Norb]

@@ -21,9 +21,10 @@ from .. import build
 
 # Kernel launches in this process (one per call that reached the card):
 # ``launches`` counts the real kernel, ``pair_launches`` the complex one,
-# and ``pair_shapes`` the complex one's launches by (B, D, U).
+# and ``real_shapes`` / ``pair_shapes`` each one's launches by (B, D, U).
 launches = 0
 pair_launches = 0
+real_shapes: Counter = Counter()
 pair_shapes: Counter = Counter()
 _entries = {}   # the C entry points, typed once at first use
 
@@ -133,6 +134,7 @@ def fused_real_matvec(diag: torch.Tensor, hdw: torch.Tensor,
         return fused_real_matvec_ref(diag, hdw, hupT, x)
     out = _launch(fn, "fused_real_matvec_f32", diag, hdw, hupT, x, d, u, nb)
     launches += 1
+    real_shapes[(nb, d, u)] += 1
     return out
 
 

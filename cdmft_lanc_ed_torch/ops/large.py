@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import build
+from ..device import resolve_device
 from .sector_ham import EllMatrix, SectorOperator
 from .split import (_PAD_DIAG, complex_dtype, embed_real, extract_real,
                     op_is_real, real_dtype)
@@ -348,8 +349,8 @@ def _build(cls, op: SectorOperator, real: bool, dtype, reuse, device):
     keep an f32 diagonal and amplitudes); ``reuse`` shares the diagonal,
     the block indices, the nonzero structures and the nd arrays of a
     same-shape operator (at Ns=16 the padded f64 diagonal alone is
-    1.34 GB)."""
-    device = torch.device(device)
+    1.34 GB).  ``device=None`` is the card."""
+    device = resolve_device(device)
     vdt = torch.float32 if dtype == torch.bfloat16 else real_dtype(dtype)
     tdt = dtype if real else complex_dtype(vdt)
     np_dtype = np.float64 if vdt == torch.float64 else np.float32
@@ -392,7 +393,7 @@ def _build(cls, op: SectorOperator, real: bool, dtype, reuse, device):
 
 def to_device_large_real(op: SectorOperator, dtype=torch.float32,
                          reuse: LargeRealOp = None,
-                         device="cpu") -> LargeRealOp:
+                         device=None) -> LargeRealOp:
     """``dtype=torch.bfloat16`` stores only the TILES in bf16 (the coarse
     Krylov stage); the diagonal and Jx/Jp amplitudes stay f32."""
     return _build(LargeRealOp, op, True, dtype, reuse, device)
@@ -400,7 +401,7 @@ def to_device_large_real(op: SectorOperator, dtype=torch.float32,
 
 def to_device_large_pair(op: SectorOperator, dtype=torch.float32,
                          reuse: LargePairOp = None,
-                         device="cpu") -> LargePairOp:
+                         device=None) -> LargePairOp:
     """Complex tiles: complex64 for ``dtype`` float32/complex64,
     complex128 for float64/complex128 (there are no complex bf16 tiles)."""
     if dtype not in (torch.float32, torch.complex64, torch.float64,
@@ -548,7 +549,7 @@ def _kit_fns(op: SectorOperator, dev: LargeRealOp):
 
 
 def build_real_padded_large(op: SectorOperator, dtype=torch.float32,
-                            reuse=None, device="cpu"):
+                            reuse=None, device=None):
     """(dev, dim_p, embed, extract), or None when the operator is
     complex."""
     if not op_is_real(op):
@@ -558,7 +559,7 @@ def build_real_padded_large(op: SectorOperator, dtype=torch.float32,
 
 
 def build_pair_padded_large(op: SectorOperator, dtype=torch.float32,
-                            reuse=None, device="cpu"):
+                            reuse=None, device=None):
     """(dev, real_flag, dim_p, embed, extract): a real operator keeps its
     real tiles (they apply to complex vectors plane by plane), a complex
     one gets complex tiles."""

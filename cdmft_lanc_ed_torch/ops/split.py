@@ -30,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import fused
 from .sector_ham import SectorOperator
 
@@ -110,8 +111,9 @@ def _dense_real_host(op: SectorOperator, pad_to: Optional[tuple]) -> dict:
 def _to_op(host: dict, dtype, device, cls=None):
     """``cls`` (default :class:`DenseRealOp`) of the host arrays in
     ``host``; ``dtype`` is the real dtype, and complex fields take its
-    complex counterpart."""
+    complex counterpart.  ``device=None`` is the card."""
     ctype = complex_dtype(dtype)
+    device = resolve_device(device)
     return (cls or DenseRealOp)(**{
         k: torch.as_tensor(np.ascontiguousarray(v)).to(
             device=device, dtype=ctype if np.iscomplexobj(v) else dtype)
@@ -119,14 +121,14 @@ def _to_op(host: dict, dtype, device, cls=None):
 
 
 def to_device_dense_real(op: SectorOperator, pad_to: tuple = None,
-                         dtype=torch.float64, device="cpu") -> DenseRealOp:
+                         dtype=torch.float64, device=None) -> DenseRealOp:
     """Device arrays of the real dense-factor kit, optionally zero-padded
     to the bucket shape ``pad_to=(ddp, dup)``."""
     return _to_op(_dense_real_host(op, pad_to), dtype, device)
 
 
 def stack_real_ops(ops, pad: tuple, dtype=torch.float64,
-                   device="cpu") -> DenseRealOp:
+                   device=None) -> DenseRealOp:
     """Stacked DenseRealOp with a leading batch axis over same-bucket
     sectors (for :func:`apply_real_flat_batched`)."""
     ddp, dup = pad
@@ -221,7 +223,7 @@ def _dense_pair_host(op: SectorOperator, pad_to: Optional[tuple]) -> dict:
 
 
 def to_device_dense_split(op: SectorOperator, pad_to: tuple = None,
-                          dtype=torch.float64, device="cpu"
+                          dtype=torch.float64, device=None
                           ) -> DenseComplexOp:
     """Device tensors of the pair kit, optionally zero-padded to the
     bucket shape ``pad_to=(ddp, dup)``.  ``dtype`` float64 gives a
@@ -231,7 +233,7 @@ def to_device_dense_split(op: SectorOperator, pad_to: tuple = None,
 
 
 def stack_pair_ops(ops, pad: tuple, dtype=torch.float64,
-                   device="cpu") -> DenseComplexOp:
+                   device=None) -> DenseComplexOp:
     """Stacked DenseComplexOp with a leading batch axis over same-bucket
     sectors (for :func:`apply_pair_flat_batched`)."""
     ddp, dup = pad
@@ -278,7 +280,7 @@ apply_pair_flat_batched = apply_pair_flat
 
 
 def build_pair_padded(op: SectorOperator, dtype=torch.float64,
-                      device="cpu"):
+                      device=None):
     """(dev, real_flag, dim_p, embed, extract) for the pair path, or None
     when the factors are too large for dense factors.  ``dev`` is always a
     :class:`DenseComplexOp` (a real operator has zero imaginary parts;
@@ -320,7 +322,7 @@ def extract_real(v: np.ndarray, dd: int, du: int, ddp: int, dup: int
 
 
 def build_real_padded(op: SectorOperator, dtype=torch.float64,
-                      device="cpu"):
+                      device=None):
     """(dev, dim_p, embed, extract) for the real path, or None when the
     operator is complex or too large for dense factors."""
     dd, du = op.dim_dw, op.dim_up

@@ -4,10 +4,12 @@ Port of the JAX package's ``solver.py`` (ED_MAIN.f90, single-cluster path).
 The solver holds the configuration, the bath basis, the device and the
 latest results; the diagonalization and GF stages run on the device.
 
-The ``ed_print_*`` flags have no effect yet: the reference-format printers
-(``io.py``) are a later slice.  The solver still writes the restart and
-bookkeeping files the loop reads back (``state_list.ed``,
-``<hfile>.used``, ``timings.ed``, ``eigenvalues_list.ed``).
+At the end of a solve it writes the restart and bookkeeping files the loop
+reads back (``state_list.ed``, ``<hfile>.used``, ``timings.ed``,
+``eigenvalues_list.ed``) and, through :mod:`.io`, the reference-format
+files: ``impSigma``/``impG``/``impG0`` under the ``ed_print_*`` flags, the
+observables, energies, ``zeta``/``sig`` and the cluster density matrix.
+Every file goes to ``cfg.work_dir``.
 """
 from __future__ import annotations
 
@@ -17,11 +19,13 @@ from typing import Callable, Optional
 import numpy as np
 
 from . import bath as bath_mod
+from . import io as ed_io
 from .bath import BathBasis, DmftBath
 from .config import EDConfig
 from .device import resolve_device
 from .diag import DiagState, diagonalize_impurity
-from .gf import GFResult, build_gf_and_sigma
+from .gf import (GFResult, GFSpectrum, build_gf_and_sigma, evaluate_gf_nnn,
+                 matsubara_grid, realaxis_grid)
 from .observables import EnergyTerms, Observables, cluster_density_matrix, \
     local_energy_impurity, observables_impurity, \
     single_particle_density_matrix
@@ -65,6 +69,9 @@ class EDSolver:
     # -- bath setup (ed_set_Hbath, ED_BATH.f90:41-58) -------------------
     def set_hbath(self, basis, lambdas) -> None:
         self.hb = bath_mod.set_hbath(basis, lambdas, self.cfg)
+
+    def set_hbath_from_hloc(self, hloc) -> None:
+        self.hb = bath_mod.hbath_basis_from_hloc(hloc, self.cfg)
 
     def get_bath_dimension(self) -> int:
         if self.hb is None:
@@ -152,6 +159,20 @@ class EDSolver:
         timers.write(os.path.join(cfg.work_dir,
                                   "timings" + cfg.ed_file_suffix + ".ed"))
 
+        # text-file output (ed_print_* flags; ED_MAIN.f90 print stage)
+        if cfg.gf_flag and cfg.ed_print_sigma:
+            ed_io.print_impsigma(cfg, self.gf)
+        if cfg.gf_flag and cfg.ed_print_g:
+            ed_io.print_impg(cfg, self.gf)
+        if cfg.gf_flag and cfg.ed_print_g0:
+            ed_io.print_impg0(cfg, self.gf)
+        ed_io.write_observables(cfg, self.obs, self.egs, cfg.ed_file_suffix)
+        ed_io.write_energy(cfg, self.energy)
+        if cfg.gf_flag:
+            ed_io.write_zeta_and_sig(cfg, self.gf.smats)
+        if cfg.dm_flag and self.cdm is not None:
+            ed_io.print_cluster_dm(cfg, self.cdm)
+
     # -- getters (ED_IO.f90:241-289 equivalents) ------------------------
     @property
     def egs(self) -> float:
@@ -189,3 +210,48 @@ class EDSolver:
 
     def sp_dm(self) -> Optional[np.ndarray]:
         return self.spdm
+
+    def _ensure_gf_store(self) -> GFResult:
+        """An empty GFResult shell for reader-populated functions (the
+        reference readers fill the global impSmats/impGmats arrays
+        without a solve, ED_IO.f90:626-744)."""
+        if self.gf is None:
+            cfg = self.cfg
+            shape_m = (cfg.nlat, cfg.nlat, cfg.nspin, cfg.nspin,
+                       cfg.norb, cfg.norb, cfg.lmats)
+            shape_r = shape_m[:-1] + (cfg.lreal,)
+            z = np.zeros
+            self.gf = GFResult(
+                spectrum=GFSpectrum(),
+                gmats=z(shape_m, np.complex128),
+                greal=z(shape_r, np.complex128),
+                smats=z(shape_m, np.complex128),
+                sreal=z(shape_r, np.complex128),
+                g0mats=z(shape_m, np.complex128),
+                g0real=z(shape_r, np.complex128),
+                max_exc=0.0, wm=matsubara_grid(cfg),
+                wr=realaxis_grid(cfg))
+        return self.gf
+
+    def read_impsigma(self) -> None:
+        """ed_read_impSigma: restore Sigma(iw)/Sigma(w) from printed files
+        into the solver store (served by the sigma_* getters)."""
+        gf = self._ensure_gf_store()
+        gf.smats, gf.sreal = ed_io.read_impsigma(self.cfg)
+
+    def read_impg(self) -> None:
+        """ed_read_impG: restore G(iw)/G(w) from printed files (the
+        restart-from-G workflow, ED_IO.f90:689-744)."""
+        gf = self._ensure_gf_store()
+        gf.gmats, gf.greal = ed_io.read_impg(self.cfg)
+
+    def gf_cluster(self, z: np.ndarray) -> np.ndarray:
+        """Cluster GF at arbitrary complex frequencies from the stored
+        pole/weight spectrum (ed_gf_cluster, ED_IO/gf_cluster.f90)."""
+        return evaluate_gf_nnn(self.gf.spectrum, self.cfg, np.asarray(z))
+
+    def reduced_dm(self, orbital_mask) -> np.ndarray:
+        """ed_get_reduced_dm: partial trace of the cluster DM."""
+        if self.cdm is None:
+            self.cdm = cluster_density_matrix(self.cfg, self.diag_state)
+        return ed_io.get_reduced_dm(self.cfg, self.cdm, orbital_mask)

@@ -62,6 +62,13 @@ def bdecomp(states: np.ndarray, ntot: int) -> np.ndarray:
     return ((states >> bits) & 1).astype(np.int8)
 
 
+def bjoin(bits: np.ndarray) -> np.ndarray:
+    """Inverse of bdecomp: [..., ntot] 0/1 -> integer states."""
+    bits = np.asarray(bits, dtype=np.int64)
+    w = np.int64(1) << np.arange(bits.shape[-1], dtype=np.int64)
+    return (bits * w).sum(axis=-1)
+
+
 # ---------------------------------------------------------------------------
 # sector codecs (reference: ED_SETUP.f90:446-520)
 # ---------------------------------------------------------------------------
@@ -132,6 +139,11 @@ def sector_states(ns: int, n: int) -> np.ndarray:
             j += 1
         pos[j] += 1
     return out
+
+
+def state_index(sorted_states: np.ndarray, states: np.ndarray) -> np.ndarray:
+    """Index of each state in the sorted sector map (binary search)."""
+    return np.searchsorted(sorted_states, states)
 
 
 # ---------------------------------------------------------------------------

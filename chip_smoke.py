@@ -35,7 +35,22 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  ed_precision="mixed", wmixing 0.6) through EDSolver and
                  run_dmft_loop, to convergence (dmft_error 2e-5); density
                  4, C4 symmetry, egs at iteration 11 within 5e-5 of the
-                 TPU run's, and the real kernel's launch count must be > 0.
+                 TPU run's, and the real kernel's launch count must be > 0;
+                 the real kernel checked against its plain version (the
+                 bounds of 2) and timed beside cuBLAS at every (B, D, U)
+                 of the loop's launch mix.
+5b. doped_loop - the same configuration hole-doped: nread=3.6 (0.9 per
+                 site), the mu search from mu=0 with ndelta=0.1, 3
+                 iterations, the impSigma/impG/impG0 files printed: mu
+                 below 0, the density at the last iteration nearer 3.6
+                 than at the first, the four site densities equal to
+                 1e-6, the lattice kinetic energy (complex128 on the
+                 card) finite and negative, the printed Sigma read back
+                 by a fresh solver to the file format's precision,
+                 gf_cluster(i w_n) equal to G(iw) to 1e-10, real kernel
+                 launches > 0, and the real kernel checked and timed over
+                 the loop's launch mix as in 5; mu, density, egs, error,
+                 seconds, launches and f64 re-solves per iteration.
 6. bhz_solve   - the BHZ chain (2-site cluster, 2 orbitals, 2 spins, 2
                  general baths: Ns=12, complex sectors) solved once at its
                  initial bath in "mixed" and in "complex128": egs to 1e-7
@@ -45,10 +60,14 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  counts the sectors the mixed solve re-solved in f64 and
                  the complex kernel's launches by (B, D, U), and times the
                  kernel and the library call over that launch mix.
-7. bhz_loop    - the same configuration through run_dmft_loop for 2
-                 iterations ("mixed", wmixing 0.5): finite, time reversal
-                 kept, complex kernel launches > 0; wall and stage times
-                 per iteration.
+7. bhz_loop    - the same configuration through run_dmft_loop for
+                 ``--bhz-loops`` iterations (default 1; "mixed", wmixing
+                 0.5): finite, time reversal kept, complex kernel
+                 launches > 0; wall and stage times per iteration.
+7a. kanemele_solve - the Kane-Mele hexagon of drivers/cdn_kanemele.py (6
+                 sites, 2 spins, 1 replica bath: Ns=12, complex sectors)
+                 solved as bhz_solve solves the BHZ chain, with the same
+                 checks, the kernel checked and timed over its launch mix.
 7b. large_solve - one EDSolver.solve of the Ns=16 flagship (2x2 plaquette
                  + 3 replica baths, U=4, mixed, f64 GF chains, lmats 256,
                  T=0), the sweep cut to the (8,8) sector (dim 1.66e8) by
@@ -57,7 +76,8 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  Im G < 0, finite Sigma, block-sparse launches > 0; the f64
                  residual, stage times, f64 re-solves, matvecs per
                  precision and peak device memory.
-8. kernels     - one line listing every ported kernel.
+8. kernels     - one line listing every ported kernel, with its launches
+                 on each path that runs it (``launches`` is their sum).
 
 The last line is {"ok": true, "device": {...}}.  Without CUDA, or without
 the package beside this script, it exits non-zero and prints no result.
@@ -324,44 +344,62 @@ def top_shapes(counter, n=5):
             for k, v in counter.most_common(n)]
 
 
-def pair_mix(counter):
-    """The complex kernel checked against its plain version (as
-    ``phase_pair_kernel`` checks it) and timed with the library call over a
-    launch mix {(B, D, U): launches}: seconds summed over every launch
-    (per-member operators, unit-normal inputs), ms per launch of the five
-    most frequent shapes, the worst error and the shapes that failed their
-    check.  Launches made here are not counted by the caller."""
+# Each fused kernel: (complex operands, its check's bound relative to
+# max|plain|), the bounds of phase_kernel and phase_pair_kernel.
+MIX_KERNELS = {"fused_real_matvec": (False, 2e-4),
+               "fused_pair_matvec": (True, 1e-3)}
+
+
+def kernel_mix(name, counter, peaks):
+    """Kernel ``name`` (a key of ``MIX_KERNELS``) checked against its plain
+    version (``check_kernel``, the bounds of ``phase_kernel`` and
+    ``phase_pair_kernel``) and timed with the library call over a launch
+    mix {(B, D, U): launches}: seconds summed over every launch
+    (per-member operators, unit-normal inputs) beside the bound summed
+    over them (``fused_bound_ms`` of each launch; its operations and bytes
+    terms summed apart), ms per launch of the five most frequent shapes,
+    the worst error and the shapes that failed their check.  Launches made
+    here are not counted by the caller."""
     import torch
     from cdmft_lanc_ed_torch.ops import fused
+    complex_, tol = MIX_KERNELS[name]
+    kernel, plain = getattr(fused, name), getattr(fused, name + "_ref")
     rng = np.random.default_rng(7)
     dev = torch.device("cuda")
 
-    def c(*shape):
-        a = rng.normal(size=shape) + 1j * rng.normal(size=shape)
-        return torch.as_tensor(a.astype(np.complex64)).to(dev)
+    def t(*shape, cplx=complex_):
+        a = rng.normal(size=shape)
+        if cplx:
+            a = a + 1j * rng.normal(size=shape)
+        return torch.as_tensor(a.astype(np.complex64 if cplx
+                                        else np.float32)).to(dev)
 
-    total = {"kernel_s": 0.0, "library_s": 0.0}
+    total = {"kernel_s": 0.0, "library_s": 0.0, "bound_s": 0.0,
+             "operations_s": 0.0, "bytes_s": 0.0}
     top, failed, worst = [], [], 0.0
     for (b, d, u), n in counter.most_common():
-        diag = torch.as_tensor(rng.normal(size=(b, d, u)).astype(
-            np.float32)).to(dev)
-        hdw, hupT, x = c(b, d, d), c(b, u, u), c(b, d, u)
-        rec = check_kernel(fused.fused_pair_matvec,
-                           fused.fused_pair_matvec_ref,
-                           (diag, hdw, hupT, x), 1e-3)
+        diag = t(b, d, u, cplx=False)
+        hdw, hupT, x = t(b, d, d), t(b, u, u), t(b, d, u)
+        rec = check_kernel(kernel, plain, (diag, hdw, hupT, x), tol)
         worst = max(worst, rec["max_abs_err"] / rec["max_abs_ref"])
         if not rec["ok"]:
             failed.append({"shape": [b, d, u], **rec})
-        ms = time_ms(lambda: fused.fused_pair_matvec(diag, hdw, hupT, x))
+        ms = time_ms(lambda: kernel(diag, hdw, hupT, x))
         lib = time_ms(lambda: torch.addcmul(torch.matmul(hdw, x), diag, x)
                       + torch.matmul(x, hupT))
+        flops, nbytes = fused_cost(b, d, u, complex_)
         total["kernel_s"] += n * ms / 1e3
         total["library_s"] += n * lib / 1e3
+        total["bound_s"] += n * fused_bound_ms(b, d, u, peaks,
+                                               complex_)[0] / 1e3
+        total["operations_s"] += n * flops / peaks[0]
+        total["bytes_s"] += n * nbytes / peaks[1]
         if len(top) < 5:
             top.append({"shape": [b, d, u], "launches": n, "ms": ms,
                         "library_ms": lib})
     return {"launches": sum(counter.values()), "shapes": len(counter),
-            **total, "library_ratio": total["kernel_s"] / total["library_s"],
+            **total, "library_ratio": total["kernel_s"] / total["library_s"]
+            if counter else None,
             "top": top, "worst_rel_err": worst, "failed_checks": failed}
 
 
@@ -441,23 +479,36 @@ def traced(profile, phase, fn):
     return res, wall
 
 
-def phase_loop(workdir, loops, profile=False):
-    from cdmft_lanc_ed_torch import EDConfig, EDSolver
-    from cdmft_lanc_ed_torch.dmft_loop import run_dmft_loop
-    from cdmft_lanc_ed_torch.models.hubbard import square_cluster_hk
-    from cdmft_lanc_ed_torch.ops import fused, lanczos
+# The metric-2 configuration (bench_dmft.py:45-54, DMFT_BENCH_r05.json):
+# the 2x2 plaquette with 2 replica baths (Ns = 12), U=4, beta=100.
+METRIC2_CFG = dict(nlat=4, norb=1, nspin=1, nbath=2, uloc=[4.0], beta=100.0,
+                   lmats=256, lreal=32, lfit=128, nloop=20, dmft_error=2e-5,
+                   nsuccess=1, ed_precision="mixed", ed_verbose=1)
 
-    cfg = EDConfig(nlat=4, norb=1, nspin=1, nbath=2, uloc=[4.0],
-                   beta=100.0, lmats=256, lreal=32, lfit=128,
-                   nloop=loops or 20, dmft_error=2e-5, nsuccess=1,
-                   ed_precision="mixed", ed_verbose=1, work_dir=workdir)
+
+def metric2_setup(workdir, **kw):
+    """(solver, bath, hk, hloc) of the metric-2 loop; ``kw`` overrides
+    config fields."""
+    from cdmft_lanc_ed_torch import EDConfig, EDSolver
+    from cdmft_lanc_ed_torch.models.hubbard import square_cluster_hk
+    cfg = EDConfig(**dict(METRIC2_CFG, **kw), work_dir=workdir)
     hk, hloc = square_cluster_hk(2, 2, nk=10)
     solver = EDSolver(cfg)
     basis = np.zeros((1, 4, 4, 1, 1, 1, 1), complex)
     for i in range(4):
         basis[0, i, i, 0, 0, 0, 0] = 1.0
     solver.set_hbath(basis, np.linspace(-1.0, 1.0, cfg.nbath)[:, None])
-    bath = solver.init_solver()
+    return solver, solver.init_solver(), hk, hloc
+
+
+def phase_loop(workdir, loops, peaks, profile=False):
+    """The metric-2 loop to convergence (or ``loops`` iterations), then the
+    real kernel checked and timed over the loop's launch mix."""
+    from cdmft_lanc_ed_torch.dmft_loop import run_dmft_loop
+    from cdmft_lanc_ed_torch.ops import fused, lanczos
+
+    solver, bath, hk, hloc = metric2_setup(
+        workdir, nloop=loops or METRIC2_CFG["nloop"])
 
     per_loop = []
     errors = []
@@ -475,12 +526,15 @@ def phase_loop(workdir, loops, profile=False):
             mark[0] = now
 
     fused.launches = fused.pair_launches = 0
+    fused.real_shapes.clear()
     lanczos.f64_fallbacks = 0
     res, wall = traced(profile, "loop", lambda: run_dmft_loop(
         solver, hk, hloc, bath, wmixing=0.6, log=loop_log,
         max_loops=loops or None))
     launches, pair_launches = fused.launches, fused.pair_launches
+    shapes = Counter(fused.real_shapes)
     fallbacks = lanczos.f64_fallbacks
+    mix = kernel_mix("fused_real_matvec", shapes, peaks)
 
     dens = float(np.sum(solver.dens()))
     docc = solver.docc().ravel()
@@ -490,7 +544,8 @@ def phase_loop(workdir, loops, profile=False):
         abs(sm[i, i, 0, 0, 0, 0, :8] - sm[0, 0, 0, 0, 0, 0, :8]).max()
         < 1e-6 for i in range(1, 4)))
     checks = {"finite": finite, "density_4": abs(dens - 4.0) < 1e-5,
-              "c4_symmetry": c4, "kernel_launched": launches > 0}
+              "c4_symmetry": c4, "kernel_launched": launches > 0,
+              "kernel_matches_plain_over_the_mix": not mix["failed_checks"]}
     if loops:
         fin = [e for e in errors if np.isfinite(e)]
         checks["error_falls"] = len(fin) < 2 or fin[-1] < fin[0]
@@ -504,10 +559,113 @@ def phase_loop(workdir, loops, profile=False):
           "egs_anchor": EGS_LOOP, "egs_anchor_iteration": EGS_LOOP_ITER,
           "density": dens, "docc": docc.tolist(), "wall_s": wall,
           "per_loop": per_loop, "fused_real_matvec_launches": launches,
+          "real_launches_by_shape": top_shapes(shapes),
+          "real_kernel_over_the_mix": mix,
           "fused_pair_matvec_launches": pair_launches,
           "f64_fallbacks": fallbacks, "checks": checks})
     if not all(checks.values()):
         fail("loop", f"checks failed: {checks}")
+    return launches
+
+
+# The hole-doped plaquette: the metric-2 configuration at a density of
+# 0.9 per site (10% hole doping, the cuprate CDMFT setting), the mu search
+# starting from mu = 0 with the default step ndelta = 0.1; 3 iterations.
+DOPED_NREAD = 3.6
+DOPED_LOOPS = 3
+
+
+def phase_doped_loop(workdir, peaks, loops=DOPED_LOOPS):
+    """``loops`` iterations of the metric-2 loop with nread = 3.6: the mu
+    search, the real kernel, the print stage (impSigma/impG/impG0 files),
+    then the lattice kinetic energy on the card, the printed self-energy
+    read back by a fresh solver, and the real kernel checked and timed
+    over the loop's launch mix (away from half filling the sectors fall
+    in other buckets than the metric-2 loop's)."""
+    import dataclasses
+    import torch
+    from cdmft_lanc_ed_torch import EDSolver
+    from cdmft_lanc_ed_torch.dmft_loop import run_dmft_loop
+    from cdmft_lanc_ed_torch.gf import matsubara_grid
+    from cdmft_lanc_ed_torch.lattice import dmft_kinetic_energy
+    from cdmft_lanc_ed_torch.ops import fused, lanczos
+
+    solver, bath, hk, hloc = metric2_setup(
+        workdir, nread=DOPED_NREAD, ndelta=0.1, xmu=0.0, ed_print_sigma=True,
+        ed_print_g=True, ed_print_g0=True)
+    cfg = solver.cfg
+    per_loop = []
+    mark = [time.time(), 0, 0]
+
+    def loop_log(msg):
+        log(msg)
+        if msg.startswith("  error="):
+            torch.cuda.synchronize()
+            now = time.time()
+            per_loop.append({
+                "xmu": cfg.xmu, "density": float(np.sum(solver.dens())),
+                "egs": solver.egs,
+                "error": float(msg.split("error=")[1].split()[0]),
+                "wall_s": now - mark[0],
+                "stages_s": dict(solver.timers.totals),
+                "real_launches": fused.launches - mark[1],
+                "f64_fallbacks": lanczos.f64_fallbacks - mark[2]})
+            mark[:] = [now, fused.launches, lanczos.f64_fallbacks]
+
+    fused.launches = fused.pair_launches = 0
+    fused.real_shapes.clear()
+    lanczos.f64_fallbacks = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = run_dmft_loop(solver, hk, hloc, bath, wmixing=0.6, log=loop_log,
+                        max_loops=loops)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, shapes = fused.launches, Counter(fused.real_shapes)
+    fallbacks = lanczos.f64_fallbacks
+
+    # kinetic energy of the last iteration, at its mu (the search has
+    # already moved cfg.xmu on)
+    sm = solver.sigma_matsubara()
+    cfg_last = dataclasses.replace(cfg, xmu=per_loop[-1]["xmu"])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    ekin = dmft_kinetic_energy(cfg_last, hk, sm)
+    torch.cuda.synchronize()
+    ekin_s = time.time() - t1
+    # the printed Sigma, read back by a fresh solver on the same work_dir
+    fresh = EDSolver(dataclasses.replace(cfg))
+    fresh.read_impsigma()
+    read_err = float(np.abs(fresh.sigma_matsubara() - sm).max()
+                     / np.abs(sm).max())
+    wm = matsubara_grid(cfg)
+    gfc_err = float(np.abs(solver.gf_cluster(1j * wm)
+                           - solver.gimp_matsubara()).max())
+    dens_site = solver.dens().ravel()
+    mix = kernel_mix("fused_real_matvec", shapes, peaks)
+    n1, n_last = per_loop[0]["density"], per_loop[-1]["density"]
+    checks = {
+        "iterations": res.iterations == loops,
+        "mu_below_0": cfg.xmu < 0.0,
+        "density_moves_to_nread": abs(n_last - DOPED_NREAD)
+        < abs(n1 - DOPED_NREAD),
+        "c4_site_densities": float(np.ptp(dens_site)) <= 1e-6,
+        "ekin_finite_negative": bool(np.isfinite(ekin) and ekin < 0.0),
+        "sigma_read_back": read_err <= 1e-15,
+        "gf_cluster_matches_gimp": gfc_err <= 1e-10,
+        "kernel_launched": launches > 0,
+        "kernel_matches_plain_over_the_mix": not mix["failed_checks"]}
+    emit({"phase": "doped_loop", "nread": DOPED_NREAD, "ndelta": 0.1,
+          "iterations": res.iterations, "xmu_final": cfg.xmu,
+          "per_loop": per_loop, "site_densities": dens_site.tolist(),
+          "wall_s": wall, "ekin": ekin, "ekin_s": ekin_s,
+          "sigma_read_back_rel_err": read_err, "gf_cluster_err": gfc_err,
+          "fused_real_matvec_launches": launches,
+          "real_launches_by_shape": top_shapes(shapes),
+          "real_kernel_over_the_mix": mix,
+          "f64_fallbacks": fallbacks, "checks": checks})
+    if not all(checks.values()):
+        fail("doped_loop", f"checks failed: {checks}")
     return launches
 
 
@@ -547,12 +705,17 @@ def tr_gap(sm):
     return gap / float(np.abs(sm).max())
 
 
-def phase_bhz_solve(workdir):
+def pair_solves(phase, workdir, setup, peaks):
+    """One solve of ``setup(workdir, precision)``'s problem in "mixed" and
+    in "complex128": egs to 1e-7 and Sigma to 5e-5 relative between the
+    two, everything finite, time reversal, complex kernel launches > 0;
+    the complex kernel checked and timed over the mixed solve's launch mix
+    (``kernel_mix``).  One ``phase`` line."""
     import torch
     from cdmft_lanc_ed_torch.ops import fused, lanczos
     out = {}
     for prec in ("mixed", "complex128"):
-        solver, bath, _, hloc = bhz_setup(workdir, prec)
+        solver, bath, _, hloc = setup(workdir, prec)
         fused.launches = fused.pair_launches = 0
         fused.pair_shapes.clear()
         lanczos.f64_fallbacks = 0
@@ -569,7 +732,7 @@ def phase_bhz_solve(workdir):
             real_launches=fused.launches,
             f64_fallbacks=lanczos.f64_fallbacks)
     mx, f64 = out["mixed"], out["complex128"]
-    mix = pair_mix(mx["pair_shapes"])
+    mix = kernel_mix("fused_pair_matvec", mx["pair_shapes"], peaks)
     sig_err = float(np.abs(mx["sigma"] - f64["sigma"]).max()
                     / np.abs(f64["sigma"]).max())
     checks = {
@@ -581,7 +744,7 @@ def phase_bhz_solve(workdir):
                              for r in out.values()),
         "kernel_launched": mx["pair_launches"] > 0,
         "kernel_matches_plain_over_the_mix": not mix["failed_checks"]}
-    emit({"phase": "bhz_solve",
+    emit({"phase": phase,
           "egs": {k: r["egs"] for k, r in out.items()},
           "egs_diff": abs(mx["egs"] - f64["egs"]),
           "sigma_rel_err": sig_err,
@@ -598,7 +761,12 @@ def phase_bhz_solve(workdir):
           "f64_fallbacks": mx["f64_fallbacks"],
           "checks": checks})
     if not all(checks.values()):
-        fail("bhz_solve", f"checks failed: {checks}")
+        fail(phase, f"checks failed: {checks}")
+    return mx["pair_launches"]
+
+
+def phase_bhz_solve(workdir, peaks):
+    return pair_solves("bhz_solve", workdir, bhz_setup, peaks)
 
 
 def phase_bhz_loop(workdir, loops, profile=False):
@@ -647,6 +815,39 @@ def phase_bhz_loop(workdir, loops, profile=False):
     if not all(checks.values()):
         fail("bhz_loop", f"checks failed: {checks}")
     return pair_launches
+
+
+# The Kane-Mele hexagon of drivers/cdn_kanemele.py:41-70 at its defaults
+# (6 sites, nspin=2, norb=1, t=1, M=0, lambda=0.1, nk=8, its
+# three-element bath basis: mass, hopping, spin-orbit) with one replica
+# bath: Ns = 12, the most a dense sector of this cluster allows (nbath=2
+# gives Ns = 18, 2.4e9 states at half filling).  U, beta and lmats are the
+# BHZ phase's.  The spin-orbit term i*lambda*nu*s_z makes every sector
+# complex, and H_dw = conj(H_up).
+KM_CFG = dict(nlat=6, norb=1, nspin=2, nbath=1, uloc=[2.0], beta=100.0,
+              lmats=256, lreal=32, lfit=128)
+KM_MODEL = dict(t=1.0, mh=0.0, lam=0.1)
+KM_NK = 8
+
+
+def kanemele_setup(workdir, prec):
+    from cdmft_lanc_ed_torch import EDConfig, EDSolver
+    from cdmft_lanc_ed_torch.models.kanemele import (kanemele_cluster_hk,
+                                                     kanemele_cluster_hloc)
+    cfg = EDConfig(**KM_CFG, ed_precision=prec, ed_verbose=0,
+                   work_dir=workdir)
+    hk, hloc = kanemele_cluster_hk(KM_NK, **KM_MODEL)
+    solver = EDSolver(cfg)
+    basis = np.stack([kanemele_cluster_hloc(0.0, 1.0, 0.0),
+                      kanemele_cluster_hloc(1.0, 0.0, 0.0),
+                      kanemele_cluster_hloc(0.0, 0.0, 1.0)])
+    lam0 = np.array([KM_MODEL["mh"], KM_MODEL["t"], KM_MODEL["lam"]])
+    solver.set_hbath(basis, np.tile(lam0, (cfg.nbath, 1)))
+    return solver, solver.init_solver(), hk, hloc
+
+
+def phase_kanemele_solve(workdir, peaks):
+    return pair_solves("kanemele_solve", workdir, kanemele_setup, peaks)
 
 
 # ---------------------------------------------------------------------------
@@ -1034,7 +1235,7 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="trace both loop phases and a few Ns=16 GF chain "
                          "steps with torch.profiler")
-    ap.add_argument("--bhz-loops", type=int, default=2,
+    ap.add_argument("--bhz-loops", type=int, default=1,
                     help="iterations of the BHZ loop phase")
     args = ap.parse_args()
 
@@ -1067,29 +1268,38 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         phase_plaquette(wd)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-        launches = phase_loop(wd, args.loops, args.profile)
+        launches = phase_loop(wd, args.loops, peaks, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-        phase_bhz_solve(wd)
+        doped_launches = phase_doped_loop(wd, peaks)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+        phase_bhz_solve(wd, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         pair_launches = phase_bhz_loop(wd, args.bhz_loops, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+        km_launches = phase_kanemele_solve(wd, peaks)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         blk_launches = phase_large_solve(wd, args.profile)
 
-    def entry(name, replaces, n, err, tm):
+    def entry(name, replaces, by_path, err, tm):
+        """``launches_by_path`` has every path that runs the kernel, each
+        counted from 0 just before it; ``launches`` is their sum."""
         return {"name": name, "route": "cuda",
                 "source": f"cdmft_lanc_ed_torch/csrc/{name}.cu",
                 "replaces": f"cdmft_lanc_ed_tpu/ops/{replaces}",
-                "launches": n, "max_abs_err": err, "shape": tm["shape"],
-                "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-                "library_ms": tm["library_ms"]}
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err,
+                "shape": tm["shape"], "ms": tm["ms"],
+                "plain_ms": tm["plain_ms"], "bound_ms": tm["bound_ms"],
+                "bound_by": tm["bound_by"], "library_ms": tm["library_ms"]}
 
     emit({"kernels": [
-        entry("fused_real_matvec", "pallas_fused.py:96", launches, worst,
+        entry("fused_real_matvec", "pallas_fused.py:96",
+              {"loop": launches, "doped_loop": doped_launches}, worst,
               timing),
-        entry("fused_pair_matvec", "pallas_fused.py:179", pair_launches,
+        entry("fused_pair_matvec", "pallas_fused.py:179",
+              {"bhz_loop": pair_launches, "kanemele_solve": km_launches},
               pair_worst, pair_timing),
-        entry("blk_spmm", "large.py:403", blk_launches,
+        entry("blk_spmm", "large.py:403", {"large_solve": blk_launches},
               blk_timing["max_abs_err"], blk_timing)],
         "seconds": time.time() - t_start})
     print(smi, flush=True)

@@ -146,9 +146,11 @@ def test_reuse_shares_one_structure():
     hrec = lam[:, 0, None, None, None, None, None, None] * basis
     dhyb = v.T.reshape(4, 1, 1, -1)
     op = sector_ham.build_sector_operator(cfg, hloc, hrec, dhyb, 4, 4)
-    d32 = tlarge.to_device_large_real(op, dtype=torch.float32)
+    d32 = tlarge.to_device_large_real(op, dtype=torch.float32,
+                                      device="cpu")
     for dt in (torch.bfloat16, torch.float64):
-        d = tlarge.to_device_large_real(op, dtype=dt, reuse=d32)
+        d = tlarge.to_device_large_real(op, dtype=dt, reuse=d32,
+                                        device="cpu")
         for side in ("dw", "up"):
             nz, nz32 = getattr(d, f"{side}_nz"), getattr(d32, f"{side}_nz")
             assert all(a is b for a, b in zip(nz, nz32))

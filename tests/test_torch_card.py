@@ -49,10 +49,11 @@ def test_kernel_matches_plain(card, b, d, u, shared):
                                device=card)
 
     args = (t(*lead, d, u), t(*lead, d, d), t(*lead, u, u), t(*xlead, d, u))
-    n0 = fused.launches
+    n0, s0 = fused.launches, fused.real_shapes[(b or 1, d, u)]
     out = fused.fused_real_matvec(*args)
     torch.cuda.synchronize()
     assert fused.launches == n0 + 1
+    assert fused.real_shapes[(b or 1, d, u)] == s0 + 1
     ref = fused.fused_real_matvec_ref(*args)
     err = float((out - ref).abs().max())
     tf32 = float((fused.fused_real_matvec_ref(*map(tf32_round, args))

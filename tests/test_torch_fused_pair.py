@@ -215,7 +215,8 @@ def test_padded_pair_arrays_equal(ops, dtype, pad):
     jdev = jsplit.to_device_dense_split(jop, pad_to=pad,
                                         dtype=getattr(jnp, dtype))
     tdev = tsplit.to_device_dense_split(top, pad_to=pad,
-                                        dtype=getattr(torch, dtype))
+                                        dtype=getattr(torch, dtype),
+                                        device="cpu")
     assert tdev.hdw.dtype == tsplit.complex_dtype(getattr(torch, dtype))
 
     def eq(t, j):
@@ -239,7 +240,8 @@ def test_stacked_pair_ops_equal(ops):
     pad = (20, 20)
     keys = ((3, 3), (2, 3))
     js = jsplit.stack_pair_ops([ops[k][0] for k in keys], pad)
-    ts = tsplit.stack_pair_ops([ops[k][1] for k in keys], pad)
+    ts = tsplit.stack_pair_ops([ops[k][1] for k in keys], pad,
+                               device="cpu")
     for tf, jf in (("hdw", "hdw"), ("hupT", "hupT")):
         np.testing.assert_array_equal(getattr(ts, tf).real.numpy(),
                                       np.asarray(getattr(js, jf + "_r")))
@@ -275,7 +277,8 @@ def test_apply_pair_flat_batched_f64(ops):
     pad = (20, 20)
     keys = ((3, 3), (2, 3))
     js = jsplit.stack_pair_ops([ops[k][0] for k in keys], pad)
-    ts = tsplit.stack_pair_ops([ops[k][1] for k in keys], pad)
+    ts = tsplit.stack_pair_ops([ops[k][1] for k in keys], pad,
+                               device="cpu")
     rng = np.random.default_rng(1)
     x = np.stack([tsplit.embed_real(
         rng.normal(size=ops[k][1].dim) + 1j * rng.normal(
@@ -365,8 +368,9 @@ def test_batched_split_solvers(ops, mixed):
         tres = tl.lanczos_eigh_mixed_split_batched(
             tsplit.apply_pair_flat_batched, tsplit.apply_pair_flat_batched,
             2, dim_p, op32=tsplit.stack_pair_ops(tops, pad,
-                                                 dtype=torch.float32),
-            op64=tsplit.stack_pair_ops(tops, pad), **kw)
+                                                 dtype=torch.float32,
+                                                 device="cpu"),
+            op64=tsplit.stack_pair_ops(tops, pad, device="cpu"), **kw)
         atol = 1e-8
     else:
         jres = jl.lanczos_eigh_split_batched(
@@ -374,7 +378,7 @@ def test_batched_split_solvers(ops, mixed):
             op=jsplit.stack_pair_ops(jops, pad), **kw)
         tres = tl.lanczos_eigh_split_batched(
             tsplit.apply_pair_flat_batched, 2, dim_p,
-            op=tsplit.stack_pair_ops(tops, pad), **kw)
+            op=tsplit.stack_pair_ops(tops, pad, device="cpu"), **kw)
         atol = 1e-10
     for jr, tr, top in zip(jres, tres, tops):
         np.testing.assert_allclose(tr.eigenvalues,

@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,9 +37,34 @@ def test_source_names_no_jax(path):
     assert "cdmft_lanc_ed_tpu" not in text
 
 
+def _two_site_op(cfg, soc):
+    """The (1, 1) sector of a bath-less two-site chain; ``soc`` adds an
+    imaginary hopping, which makes the operator complex."""
+    from cdmft_lanc_ed_torch.ops import sector_ham
+    hloc = np.zeros((2, 2, 1, 1, 1, 1), np.complex128)
+    hloc[0, 1, 0, 0, 0, 0] = -1.0 + 1j * soc
+    hloc[1, 0, 0, 0, 0, 0] = -1.0 - 1j * soc
+    return sector_ham.build_sector_operator(
+        cfg, hloc, np.zeros((0,) + hloc.shape, np.complex128),
+        np.zeros((2, 1, 1, 0)), 1, 1)
+
+
 def test_no_device_means_the_card(monkeypatch, tmp_path):
+    from cdmft_lanc_ed_torch.ops import split
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tpkg.EDConfig(nlat=1, nbath=0, work_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA"):
         tpkg.EDSolver(cfg)
     assert tpkg.EDSolver(cfg, device="cpu").device.type == "cpu"
+    # the op builders: a real one and a pair one
+    cfg2 = tpkg.EDConfig(nlat=2, nbath=0, work_dir=str(tmp_path))
+    real_op, pair_op = _two_site_op(cfg2, 0.0), _two_site_op(cfg2, 0.3)
+    assert split.op_is_real(real_op) and not split.op_is_real(pair_op)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        split.build_real_padded(real_op)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        split.build_pair_padded(pair_op)
+    assert split.build_real_padded(real_op, device="cpu")[0] \
+        .diag.device.type == "cpu"
+    assert split.build_pair_padded(pair_op, device="cpu")[0] \
+        .hdw.device.type == "cpu"

@@ -130,8 +130,9 @@ def test_batched_solvers(mixed):
             op64=js.stack_real_ops(jops, pad), **kw)
         tres = tl.lanczos_eigh_mixed_real_batched(
             ts.apply_real_flat_batched, ts.apply_real_flat_batched, 2, dim_p,
-            op32=ts.stack_real_ops(tops, pad, dtype=torch.float32),
-            op64=ts.stack_real_ops(tops, pad), **kw)
+            op32=ts.stack_real_ops(tops, pad, dtype=torch.float32,
+                                   device="cpu"),
+            op64=ts.stack_real_ops(tops, pad, device="cpu"), **kw)
         atol = 1e-8
     else:
         jres = jl.lanczos_eigh_real_batched(
@@ -139,7 +140,7 @@ def test_batched_solvers(mixed):
             op=js.stack_real_ops(jops, pad), **kw)
         tres = tl.lanczos_eigh_real_batched(
             ts.apply_real_flat_batched, 2, dim_p,
-            op=ts.stack_real_ops(tops, pad), **kw)
+            op=ts.stack_real_ops(tops, pad, device="cpu"), **kw)
         atol = 1e-10
     for jr, tr, top in zip(jres, tres, tops):
         np.testing.assert_allclose(tr.eigenvalues,

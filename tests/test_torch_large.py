@@ -146,8 +146,9 @@ def test_plain_spmm_matches_jax(dtype):
 
 def _port_kit(top, dtype=torch.float64, pair=False):
     if pair:
-        return tlarge.build_pair_padded_large(top, dtype=dtype)
-    return tlarge.build_real_padded_large(top, dtype=dtype)
+        return tlarge.build_pair_padded_large(top, dtype=dtype,
+                                              device="cpu")
+    return tlarge.build_real_padded_large(top, dtype=dtype, device="cpu")
 
 
 @pytest.mark.parametrize("jh", [0.0, 0.3])
@@ -226,15 +227,15 @@ def test_coarse_stage_matches_jax():
         jlarge.apply_large_real_flat, jlarge.apply_large_real_flat, dim_p,
         v0=jembed(v0), op32=j32, op64=j64, op16=j16, **kw)
     t32, tdim, tembed, _ = tlarge.build_real_padded_large(
-        top, dtype=torch.float32)
+        top, dtype=torch.float32, device="cpu")
     t16 = tlarge.build_real_padded_large(top, dtype=torch.bfloat16,
-                                         reuse=t32)[0]
+                                         reuse=t32, device="cpu")[0]
     assert t16.dw_tiles.dtype == torch.bfloat16 and t16.diag is t32.diag
     tres = tlanczos.lanczos_eigh_mixed_real(
         tlarge.apply_large_real_flat, tlarge.apply_large_real_flat, tdim,
         v0=tembed(v0), op32=t32, op16=t16,
         op64=lambda: tlarge.build_real_padded_large(
-            top, dtype=torch.float64)[0], **kw)
+            top, dtype=torch.float64, device="cpu")[0], **kw)
     np.testing.assert_allclose(tres.eigenvalues, jres.eigenvalues,
                                rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(tres.eigenvalues, w_ref, rtol=1e-10,

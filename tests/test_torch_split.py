@@ -79,7 +79,8 @@ def test_padded_arrays_equal(ops, dtype):
     jdev = jsplit.to_device_dense_real(jop, pad_to=pad,
                                        dtype=getattr(jnp, dtype))
     tdev = tsplit.to_device_dense_real(top, pad_to=pad,
-                                       dtype=getattr(torch, dtype))
+                                       dtype=getattr(torch, dtype),
+                                       device="cpu")
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(tdev, f).numpy(),
                                       np.asarray(getattr(jdev, f)))
@@ -88,7 +89,8 @@ def test_padded_arrays_equal(ops, dtype):
 def test_stacked_arrays_equal(ops):
     pad = (512, 256)
     js = jsplit.stack_real_ops([ops[k][0] for k in ((3, 4), (3, 8))], pad)
-    ts = tsplit.stack_real_ops([ops[k][1] for k in ((3, 4), (3, 8))], pad)
+    ts = tsplit.stack_real_ops([ops[k][1] for k in ((3, 4), (3, 8))], pad,
+                               device="cpu")
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(ts, f).numpy(),
                                       np.asarray(getattr(js, f)))
@@ -118,7 +120,8 @@ def test_apply_real_flat_batched_f64(ops):
     pad = (512, 256)
     keys = ((3, 4), (3, 8))
     js = jsplit.stack_real_ops([ops[k][0] for k in keys], pad)
-    ts = tsplit.stack_real_ops([ops[k][1] for k in keys], pad)
+    ts = tsplit.stack_real_ops([ops[k][1] for k in keys], pad,
+                               device="cpu")
     rng = np.random.default_rng(1)
     x = np.stack([tsplit.embed_real(rng.normal(size=ops[k][1].dim),
                                     ops[k][1].dim_dw, ops[k][1].dim_up,
