@@ -10,8 +10,14 @@ The port covers the real-Hamiltonian CDMFT loop (the 2x2 plaquette with
 replica baths; the f32 Krylov H·v in the hand-written CUDA kernel
 ``csrc/fused_real_matvec.cu``), doped loops (the chemical-potential
 search), complex Hamiltonians (BHZ, Kane-Mele; ``csrc/fused_pair_matvec.cu``),
-sectors of Ns >= 16 (``csrc/blk_spmm.cu``), the lattice kinetic energy and
-the reference-format text files (``io.py``).
+sectors of Ns >= 16 (``csrc/blk_spmm.cu``), the lattice kinetic energy,
+the reference-format text files (``io.py``), real-space CDMFT over
+inequivalent clusters (``lattice_solver.py``), the periodization schemes
+(``periodize.py``), custom observables (``custom_obs.py``), band
+structures and topological invariants (``postprocess.py``), the
+reference-named ``ed_*`` aliases (``compat.py``) and the driver programs
+(``drivers/``, run as ``python -m cdmft_lanc_ed_torch.drivers.<name>``).
+Multi-card meshes are not ported.
 """
 from .config import EDConfig, ed_read_input, read_input
 from .bath import (BathBasis, DmftBath, get_bath_dimension,

@@ -11,7 +11,9 @@ sector, ED_GF_NORMAL.f90):
   exactly: the symmetric 2-channel scheme (injections a, a+b), every
   injection one real plane on the real kit;
 * otherwise the 4-channel scheme adds the (a ± i b) injections with
-  prefactor -i, and complex injections run on the complex pair kit;
+  prefactor -i, and complex injections run on the complex pair kit, or,
+  when the target sector's operator is real (a complex bath-basis element
+  at zero weight), on its two real planes (``split.apply_realpair_flat``);
 * every injection that targets the same (N_up, N_dw) sector and kind runs
   in one batched tridiagonalisation on the device (``ed_gf_precision``:
   f64/complex128 by default, f32/complex64 on the fused CUDA H·v);
@@ -380,12 +382,12 @@ def _chains_dense(entries, op, is_real, nlanc, gf_dtype, device, nimp):
                              / max(jdim * 8 * 3 * planes, 1)))
     apply1, dev, real_op, _dim_p, embed, _extract = _kit(op, gf_dtype,
                                                          device)
-    # real injections on a real operator stay one real plane; all others
-    # run complex on the pair kit (a real operator's with zero imaginary
-    # parts)
+    # real injections on a real operator stay one real plane; complex ones
+    # on a real operator take its two real planes (the 4-channel scheme of
+    # a problem whose H is real: the JAX package's gf.py:394-413); the
+    # rest run on the pair kit
     if real_op and not is_real:
-        apply1 = split.apply_pair_flat
-        dev = split.build_pair_padded(op, dtype=gf_dtype, device=device)[0]
+        apply1 = split.apply_realpair_flat
     tridiag = (lanczos.lanczos_tridiag_batched_real if real_op and is_real
                else lanczos.lanczos_tridiag_batched_split)
     for lo in range(0, len(batch), rows_max):

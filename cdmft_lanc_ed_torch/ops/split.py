@@ -10,7 +10,9 @@ with the two spin factors stored as small dense matrices: the full H is
 never materialised.  A real Hamiltonian takes the real kit
 (:class:`DenseRealOp`, one real plane); a complex one takes the pair kit
 (:class:`DenseComplexOp`, complex tensors: the card has complex64 and
-complex128, so the JAX package's re/im planes become one tensor).  An f32
+complex128, so the JAX package's re/im planes become one tensor); complex
+vectors on a real operator take its two real planes
+(:func:`apply_realpair_flat`).  An f32
 plane or a complex64 vector goes to the hand-written CUDA kernels
 (:mod:`.fused`); f64 and complex128 (Rayleigh-Ritz refine, GF
 tridiagonalisation, ``ed_precision="complex128"``) are left to
@@ -279,20 +281,51 @@ def apply_pair_flat(dev: DenseComplexOp, x: torch.Tensor) -> torch.Tensor:
 apply_pair_flat_batched = apply_pair_flat
 
 
+# Applications of a real operator to complex vectors in this process (one
+# per apply_realpair_flat call, on any device).
+realpair_applications = 0
+
+
+def apply_realpair_flat(dev: DenseRealOp, x: torch.Tensor) -> torch.Tensor:
+    """Real operator on complex vectors: x [..., dim_p] complex -> H·x.
+    The (re, im) planes never mix, so H·x is two real products per side
+    instead of the pair kit's complex ones (the JAX package's
+    split.py:418-421 and :478-482).  An unbatched operator takes both
+    planes of every vector in one product, [2, ...] stacked (f32: one
+    fused-kernel launch); a batched one ([B, ...] fields, x [B, dim_p])
+    takes each plane in its own."""
+    global realpair_applications
+    realpair_applications += 1
+    sh = x.shape[:-1] + tuple(dev.diag.shape[-2:])
+    if dev.diag.dim() == 2:
+        planes = torch.stack((x.real, x.imag)).reshape((2,) + sh)
+        out = matvec_dense_real(dev, planes)
+        re, im = out[0], out[1]
+    else:
+        re = matvec_dense_real(dev, x.real.reshape(sh).contiguous())
+        im = matvec_dense_real(dev, x.imag.reshape(sh).contiguous())
+    return torch.complex(re, im).reshape(x.shape)
+
+
+# Batched form: dev fields and x [B, dim_p] share the leading batch axis.
+apply_realpair_flat_batched = apply_realpair_flat
+
+
 def build_pair_padded(op: SectorOperator, dtype=torch.float64,
                       device=None):
     """(dev, real_flag, dim_p, embed, extract) for the pair path, or None
-    when the factors are too large for dense factors.  ``dev`` is always a
-    :class:`DenseComplexOp` (a real operator has zero imaginary parts;
-    the JAX package's four-matmul real-operator pair path is not ported),
-    and ``real_flag`` says whether the operator is real."""
+    when the factors are too large for dense factors.  ``dev`` is a
+    :class:`DenseRealOp` for a real operator (apply it with
+    :func:`apply_realpair_flat`), else a :class:`DenseComplexOp`;
+    ``real_flag`` says which."""
     dd, du = op.dim_dw, op.dim_up
     if max(du, dd) > DENSE_FACTOR_MAX:
         return None
     ddp, dup = _bucket(dd), _bucket(du)
-    dev = to_device_dense_split(
-        op, pad_to=(ddp, dup) if (ddp, dup) != (dd, du) else None,
-        dtype=dtype, device=device)
+    pad = (ddp, dup) if (ddp, dup) != (dd, du) else None
+    real = op_is_real(op)
+    dev = (to_device_dense_real if real else to_device_dense_split)(
+        op, pad_to=pad, dtype=dtype, device=device)
 
     def embed(v):
         return embed_real(v, dd, du, ddp, dup)
@@ -300,7 +333,7 @@ def build_pair_padded(op: SectorOperator, dtype=torch.float64,
     def extract(v):
         return extract_real(v, dd, du, ddp, dup)
 
-    return dev, op_is_real(op), ddp * dup, embed, extract
+    return dev, real, ddp * dup, embed, extract
 
 
 def embed_real(v: np.ndarray, dd: int, du: int, ddp: int, dup: int

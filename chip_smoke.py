@@ -33,12 +33,13 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
 5. loop        - the metric-2 CDMFT loop (2x2 plaquette + 2 replica baths,
                  Ns=12, U=4, beta=100, lmats=256, lfit=128, nk=10,
                  ed_precision="mixed", wmixing 0.6) through EDSolver and
-                 run_dmft_loop, to convergence (dmft_error 2e-5); density
-                 4, C4 symmetry, egs at iteration 11 within 5e-5 of the
-                 TPU run's, and the real kernel's launch count must be > 0;
-                 the real kernel checked against its plain version (the
-                 bounds of 2) and timed beside cuBLAS at every (B, D, U)
-                 of the loop's launch mix.
+                 run_dmft_loop: converged (error < 2e-5) within 16
+                 iterations, egs at the converged iteration within 2e-3 of
+                 the TPU run's, density 4, C4 symmetry, and the real
+                 kernel's launch count must be > 0 (egs's gap at iteration
+                 11 is printed); the real kernel checked against its plain
+                 version (the bounds of 2) and timed beside cuBLAS at every
+                 (B, D, U) of the loop's launch mix.
 5b. doped_loop - the same configuration hole-doped: nread=3.6 (0.9 per
                  site), the mu search from mu=0 with ndelta=0.1, 3
                  iterations, the impSigma/impG/impG0 files printed: mu
@@ -51,6 +52,17 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  launches > 0, and the real kernel checked and timed over
                  the loop's launch mix as in 5; mu, density, egs, error,
                  seconds, launches and f64 re-solves per iteration.
+5c. realpair_gf - the 2x2 plaquette + 1 replica bath (Ns=8) whose bath
+                 basis has a second, complex element i (c+_0 c_1 - h.c.) at
+                 zero weight: real sector operators under the 4-channel GF,
+                 which runs through split.apply_realpair_flat (two real
+                 products per side on the (re, im) planes; in single
+                 precision fused_real_matvec launches over the stacked
+                 planes).  Against the same problem without the element
+                 (2-channel): G to 1e-8 and Sigma to 1e-6 in f64, G to 1e-5
+                 in single precision; realpair applications > 0; the real
+                 kernel checked and timed over the single-precision run's
+                 launch mix.
 6. bhz_solve   - the BHZ chain (2-site cluster, 2 orbitals, 2 spins, 2
                  general baths: Ns=12, complex sectors) solved once at its
                  initial bath in "mixed" and in "complex128": egs to 1e-7
@@ -60,6 +72,12 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  counts the sectors the mixed solve re-solved in f64 and
                  the complex kernel's launches by (B, D, U), and times the
                  kernel and the library call over that launch mix.
+6b. bhz_post   - no new solve: CustomObservables with the identity on the
+                 mixed BHZ solver against its density (within 0.02), the
+                 spin Chern numbers and Z2 of the single-cell BHZ model at
+                 Mh 0.5 (|C_up| = 1, C_dw = -C_up, Z2 = 1) and Mh 2.0 (all
+                 0) on the card, and the Sigma- and G-scheme periodizations
+                 of a seeded Sigma on the card against the CPU to 1e-12.
 7. bhz_loop    - the same configuration through run_dmft_loop for
                  ``--bhz-loops`` iterations (default 1; "mixed", wmixing
                  0.5): finite, time reversal kept, complex kernel
@@ -68,7 +86,23 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  sites, 2 spins, 1 replica bath: Ns=12, complex sectors)
                  solved as bhz_solve solves the BHZ chain, with the same
                  checks, the kernel checked and timed over its launch mix.
-7b. large_solve - one EDSolver.solve of the Ns=16 flagship (2x2 plaquette
+7b. edge_loop  - real-space CDMFT: one iteration of the port's
+                 drivers/cdn_bhz_2d_edge.py on the BHZ ribbon (Nx=2 sites
+                 per layer, Ly=4 layers, lrsym: two inequivalent clusters,
+                 the edge and the bulk layer, each with 2 replica baths,
+                 Ns=12), the BHZ cell's interaction, grids and model,
+                 nk=32, mixed: time reversal of each cluster's Sigma, the
+                 two clusters' egs equal to 1e-9 (same bath and Hloc), edge
+                 and bulk Weiss fields apart by more than 1e-6 (the ribbon
+                 G_loc reached them), finite baths; seconds per cluster
+                 solve and stage, G_loc, Weiss and fit seconds; the complex
+                 kernel checked and timed over the loop's launch mix.
+7c. edge_post  - the port's drivers/cdn_bhz_postprocessing_edge.py on the
+                 files edge_loop printed: the real-axis Sigma read back to
+                 the print precision, the per-layer M-scheme Sigma(kx, w)
+                 and the A(kx, w) map, finite and equal to the same
+                 computation on the CPU to 1e-10 at 4 kx.
+7d. large_solve - one EDSolver.solve of the Ns=16 flagship (2x2 plaquette
                  + 3 replica baths, U=4, mixed, f64 GF chains, lmats 256,
                  T=0), the sweep cut to the (8,8) sector (dim 1.66e8) by
                  ed_sectors and a sectors_list.restart: E0 within 1e-7 of
@@ -87,6 +121,7 @@ the Ns=16 solve with torch.profiler and prints the device time by kernel
 and the device's busy share (exploration, not part of the default run).
 """
 import argparse
+import contextlib
 import json
 from collections import Counter
 import subprocess
@@ -114,9 +149,15 @@ PAIR_TOL = "max|kernel - plain| <= 1e-3 * max|plain|"
 # version's error on TF32-rounded inputs (IEEE f32 measured 78x below).
 TF32_TOL = ", and <= 0.1 * the TF32 control"
 # DMFT_BENCH_r05.json: the TPU run stopped at iteration 11 (error 1.943e-5)
-# with egs -8.69773223.  Near convergence egs still drifts ~1e-3 per
-# iteration, so the port's egs is held to it at that same iteration.
+# with egs -8.69773223.  The loop's trajectory is set by last digits: five
+# runs on the H100 (two precisions, two fit tolerances, two host rounding
+# orders; metric2_precision.py) converged in 12-15 iterations with egs
+# 2.0e-4 to 9.1e-4 from it, while at iteration 11 they lay 4.5e-5 to
+# 3.6e-3 away.  So the port is held at convergence, within 16 iterations
+# and to 2e-3 (2.2x the widest recorded gap); the gap at iteration 11 is
+# printed.
 EGS_LOOP, EGS_LOOP_ITER = -8.69773223, 11
+EGS_LOOP_TOL, LOOP_MAX_ITERS = 2e-3, 16
 
 
 def emit(obj):
@@ -550,13 +591,17 @@ def phase_loop(workdir, loops, peaks, profile=False):
         fin = [e for e in errors if np.isfinite(e)]
         checks["error_falls"] = len(fin) < 2 or fin[-1] < fin[0]
     else:
-        checks["converged"] = bool(res.converged)
-        it = min(EGS_LOOP_ITER, len(egs_hist))
-        checks["egs_anchor"] = abs(egs_hist[it - 1] - EGS_LOOP) < 5e-5
+        checks["converged_within_16"] = bool(
+            res.converged and res.iterations <= LOOP_MAX_ITERS)
+        checks["egs_anchor_at_convergence"] = \
+            abs(egs_hist[-1] - EGS_LOOP) < EGS_LOOP_TOL
+    it = min(EGS_LOOP_ITER, len(egs_hist))
     emit({"phase": "loop", "iterations": res.iterations,
           "converged": bool(res.converged), "error": res.error,
           "errors": errors, "egs": solver.egs, "egs_per_iteration": egs_hist,
-          "egs_anchor": EGS_LOOP, "egs_anchor_iteration": EGS_LOOP_ITER,
+          "egs_anchor": EGS_LOOP, "egs_anchor_tol": EGS_LOOP_TOL,
+          "egs_gap_at_convergence": abs(egs_hist[-1] - EGS_LOOP),
+          "egs_gap_at_iteration_11": abs(egs_hist[it - 1] - EGS_LOOP),
           "density": dens, "docc": docc.tolist(), "wall_s": wall,
           "per_loop": per_loop, "fused_real_matvec_launches": launches,
           "real_launches_by_shape": top_shapes(shapes),
@@ -715,7 +760,7 @@ def pair_solves(phase, workdir, setup, peaks):
     from cdmft_lanc_ed_torch.ops import fused, lanczos
     out = {}
     for prec in ("mixed", "complex128"):
-        solver, bath, _, hloc = setup(workdir, prec)
+        solver, bath, hk, hloc = setup(workdir, prec)
         fused.launches = fused.pair_launches = 0
         fused.pair_shapes.clear()
         lanczos.f64_fallbacks = 0
@@ -724,7 +769,8 @@ def pair_solves(phase, workdir, setup, peaks):
         solver.solve(bath, hloc)
         torch.cuda.synchronize()
         out[prec] = dict(
-            egs=solver.egs, sigma=solver.sigma_matsubara(),
+            solver=solver, hk=hk, egs=solver.egs,
+            sigma=solver.sigma_matsubara(),
             dens=solver.dens(), seconds=time.time() - t0,
             stages_s=dict(solver.timers.totals),
             pair_launches=fused.pair_launches,
@@ -762,11 +808,13 @@ def pair_solves(phase, workdir, setup, peaks):
           "checks": checks})
     if not all(checks.values()):
         fail(phase, f"checks failed: {checks}")
-    return mx["pair_launches"]
+    return mx["pair_launches"], mx["solver"], mx["hk"]
 
 
 def phase_bhz_solve(workdir, peaks):
-    return pair_solves("bhz_solve", workdir, bhz_setup, peaks)
+    """The BHZ chain's pair of solves; returns the mixed solver and its
+    H(k) for ``phase_bhz_post``."""
+    return pair_solves("bhz_solve", workdir, bhz_setup, peaks)[1:]
 
 
 def phase_bhz_loop(workdir, loops, profile=False):
@@ -847,7 +895,291 @@ def kanemele_setup(workdir, prec):
 
 
 def phase_kanemele_solve(workdir, peaks):
-    return pair_solves("kanemele_solve", workdir, kanemele_setup, peaks)
+    return pair_solves("kanemele_solve", workdir, kanemele_setup, peaks)[0]
+
+
+def finite_or_none(x):
+    """``x`` as a float, None when it is not finite (JSON has no inf)."""
+    return float(x) if np.isfinite(x) else None
+
+
+def phase_bhz_post(solver, hk):
+    """Postprocessing on the card without a new solve: CustomObservables
+    with the identity on the BHZ chain's mixed solver against its density
+    (the JAX suite's bound 0.02, tests/test_periodize_customobs.py:
+    146-164), the spin Chern / Z2 marker of the single-cell BHZ model in
+    both phases, and the Sigma- and G-scheme periodizations on seeded Sigma
+    against the same calls on the CPU."""
+    import torch
+    from cdmft_lanc_ed_torch import postprocess
+    from cdmft_lanc_ed_torch.custom_obs import CustomObservables
+    from cdmft_lanc_ed_torch.models import bhz
+    from cdmft_lanc_ed_torch.periodize import (build_sigma_g_scheme,
+                                               cluster_coords,
+                                               periodize_sigma_scheme)
+    from cdmft_lanc_ed_torch.utils.reshape import lso2nnn, nnn2lso
+    cfg = solver.cfg
+    secs = {}
+    t0 = time.time()
+    co = CustomObservables(solver, hk)
+    co.add("ntot", np.eye(cfg.nlso))
+    ntot = co.compute()["ntot"]
+    dens = float(np.sum(solver.dens()))
+    secs["custom_obs"] = time.time() - t0
+
+    def single_cell(mh, ts=0.25, lam=0.3):
+        def hk_fn(k):
+            h = bhz.bhz_cluster_hloc(1, 1, mh, ts, lam).copy()
+            for sp in range(2):
+                h[0, 0, sp, sp] += (
+                    bhz.t_x(ts, lam, sp).conj().T * np.exp(1j * k[0])
+                    + bhz.t_x(ts, lam, sp) * np.exp(-1j * k[0])
+                    + bhz.t_y(ts, lam).T * np.exp(1j * k[1])
+                    + bhz.t_y(ts, lam) * np.exp(-1j * k[1]))
+            return nnn2lso(h, 1, 2, 2)
+        return hk_fn
+
+    t0 = time.time()
+    recip = 2 * np.pi * np.eye(2)
+    chern = {mh: postprocess.spin_chern_z2(single_cell(mh), recip, 12, 4, 1)
+             for mh in (0.5, 2.0)}
+    torch.cuda.synchronize()
+    secs["spin_chern_z2"] = time.time() - t0
+
+    rng = np.random.default_rng(31)
+    n = cfg.nlso
+    z = 1j * np.pi / cfg.beta * (2 * np.arange(64) + 1)
+    a = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
+    e = np.diag(rng.normal(size=n))
+    sig = lso2nnn(np.stack([0.3 * a @ np.linalg.inv(zz * np.eye(n) - e)
+                            @ a.conj().T for zz in z], axis=-1),
+                  cfg.nlat, cfg.nspin, cfg.norb)
+    coords = cluster_coords(cfg.nlat, cfg.nlat, 1)
+    hk_per = nnn2lso(bhz.bhz_cluster_hloc(1, 1, 1.0, 0.25, 0.3), 1, 2, 2)
+    k = np.array([0.9, 0.0])
+    per_err, t0 = 0.0, time.time()
+    for name, fn, args in (
+            ("sigma", periodize_sigma_scheme, (coords, hk_per, sig)),
+            ("g", build_sigma_g_scheme, (coords, hk[3], hk_per, sig))):
+        card = fn(cfg, k, *args, z)
+        cpu = fn(cfg, k, *args, z, device="cpu")
+        for c, h in zip(card, cpu):
+            per_err = max(per_err, float(np.abs(c - h).max()
+                                         / np.abs(h).max()))
+    secs["periodize"] = time.time() - t0
+    checks = {
+        "custom_obs_density": abs(ntot - dens) <= 0.02,
+        "spin_chern_topological": abs(abs(chern[0.5][0]) - 1) < 1e-6
+        and abs(chern[0.5][0] + chern[0.5][1]) < 1e-6 and chern[0.5][2] == 1,
+        "spin_chern_trivial": abs(chern[2.0][0]) < 1e-6
+        and abs(chern[2.0][1]) < 1e-6 and chern[2.0][2] == 0,
+        "periodize_card_vs_cpu": per_err <= 1e-12}
+    emit({"phase": "bhz_post", "custom_obs_ntot": ntot, "density": dens,
+          "custom_obs_gap": abs(ntot - dens),
+          "spin_chern_z2": {str(mh): list(v) for mh, v in chern.items()},
+          "periodize_card_vs_cpu_rel_err": per_err, "seconds": secs,
+          "checks": checks})
+    if not all(checks.values()):
+        fail("bhz_post", f"checks failed: {checks}")
+
+
+# The BHZ ribbon of drivers/cdn_bhz_2d_edge.py: Nx=2 sites per layer, Ly=4
+# layers, lrsym (layers 0 and 3 share the edge cluster, 1 and 2 the bulk
+# one: Nineq=2), two replica baths (Ns=12 per cluster), the BHZ cell's
+# interaction and grids and model, nk=32, mixed; one DMFT iteration.
+EDGE_NX, EDGE_LY, EDGE_NK = 2, 4, 32
+EDGE_INPUT = """NBATH=2
+ULOC=2.0,2.0
+UST=0.5
+BETA=100
+LMATS=256
+LREAL=32
+LFIT=128
+NLOOP=1
+ED_PRECISION=mixed
+ED_VERBOSE=0
+WORK_DIR={}
+"""
+EDGE_FLAGS = ["--nx", str(EDGE_NX), "--ly", str(EDGE_LY), "--mh",
+              str(BHZ_MODEL["mh"]), "--ts", str(BHZ_MODEL["ts"]), "--lam",
+              str(BHZ_MODEL["lam"])]
+
+
+def phase_edge_loop(workdir, peaks):
+    """One iteration of the port's edge driver (real-space CDMFT over two
+    inequivalent Ns=12 clusters, the ribbon G_loc, per-layer Weiss fields
+    and fits): time reversal of each cluster's Sigma, equal egs (same bath
+    and Hloc at iteration 1), edge and bulk Weiss fields that differ,
+    finite baths; the complex kernel checked and timed over the loop's
+    launch mix.  Returns (launches, input file, main's result)."""
+    import torch
+    from cdmft_lanc_ed_torch.drivers import cdn_bhz_2d_edge
+    from cdmft_lanc_ed_torch.ops import fused, lanczos
+    conf = f"{workdir}/input.conf"
+    with open(conf, "w") as fh:
+        fh.write(EDGE_INPUT.format(workdir))
+    fused.launches = fused.pair_launches = 0
+    fused.pair_shapes.clear()
+    lanczos.f64_fallbacks = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):   # its progress lines
+        res = cdn_bhz_2d_edge.main(["--input", conf, "--nk", str(EDGE_NK)]
+                                   + EDGE_FLAGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, shapes = fused.pair_launches, Counter(fused.pair_shapes)
+    real_launches, fallbacks = fused.launches, lanczos.f64_fallbacks
+    mix = kernel_mix("fused_pair_matvec", shapes, peaks)
+    egs, w = res["egs"], res["weiss"]
+    weiss_gap = float(np.abs(w[0] - w[1]).max() / np.abs(w).max())
+    t = res["timings"][0]
+    checks = {
+        "time_reversal": all(tr_gap(sm) < TR_TOL for sm in res["smats"]),
+        "egs_equal": abs(egs[0] - egs[1]) < 1e-9,
+        "weiss_edge_vs_bulk": weiss_gap > 1e-6,
+        "baths_finite": bool(np.isfinite(res["baths"]).all()),
+        "kernel_launched": launches > 0,
+        "kernel_matches_plain_over_the_mix": not mix["failed_checks"]}
+    emit({"phase": "edge_loop", "nx": EDGE_NX, "ly": EDGE_LY, "nineq": 2,
+          "ns": res["solver"].solvers[0].cfg.ns, "egs": egs.tolist(),
+          "tr_gap": [tr_gap(sm) for sm in res["smats"]],
+          "weiss_edge_vs_bulk_rel_gap": weiss_gap,
+          "error": [finite_or_none(e) for e in res["errors"]],
+          "density": res["dens"].sum(axis=(1, 2)).tolist(), "wall_s": wall,
+          "cluster_solve_s": t["solve_s"], "cluster_stages_s": t["stages_s"],
+          "gloc_s": t["gloc_s"], "weiss_s": t["weiss_s"], "fit_s": t["fit_s"],
+          "fused_pair_matvec_launches": launches,
+          "pair_launches_by_shape": top_shapes(shapes),
+          "pair_kernel_over_the_mix": mix,
+          "fused_real_matvec_launches": real_launches,
+          "f64_fallbacks": fallbacks, "checks": checks})
+    if not all(checks.values()):
+        fail("edge_loop", f"checks failed: {checks}")
+    return launches, conf, res
+
+
+EDGE_POST_KX = (0, 37, 100, 163)   # rows of the 200-point kx grid
+
+
+def phase_edge_post(conf, edge):
+    """The port's edge postprocessing driver on the files edge_loop
+    printed: the real-axis Sigma read back, the per-layer M-scheme Sigma
+    and the ribbon A(kx, w) map; the map against the same computation on
+    the CPU at a few kx."""
+    import torch
+    from cdmft_lanc_ed_torch.drivers import cdn_bhz_postprocessing_edge as pe
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with contextlib.redirect_stdout(sys.stderr):
+        res = pe.main(["--input", conf] + EDGE_FLAGS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    sreal = edge["solver"].sigma_realaxis()
+    read_err = float(np.abs(res["sreal"] - sreal).max()
+                     / np.abs(sreal).max())
+    rows = list(EDGE_POST_KX)
+    cpu = pe.spectral_map(res["cfg"], res["args"], list(res["sreal"]),
+                          res["ks"][rows], device="cpu")
+    cpu_err = float(np.abs(cpu - res["akw"][rows]).max())
+    checks = {"sigma_read_back": read_err <= 1e-15,
+              "map_finite": bool(np.isfinite(res["akw"]).all()),
+              "map_card_vs_cpu": cpu_err <= 1e-10}
+    emit({"phase": "edge_post", "nk": len(res["ks"]),
+          "lreal": res["akw"].shape[1], "sigma_read_back_rel_err": read_err,
+          "map_card_vs_cpu_max_abs_err": cpu_err, "seconds": wall,
+          "checks": checks})
+    if not all(checks.values()):
+        fail("edge_post", f"checks failed: {checks}")
+
+
+# The 2x2 plaquette with one replica bath (Ns=8), half filling, U=4,
+# beta=100, lmats=256; its bath basis gets a second, complex element
+# i (c+_0 c_1 - h.c.) at zero weight.  Hloc and every sector operator stay
+# real; the complex basis sends the GF to the 4-channel scheme, whose
+# complex injections take the real operators' two planes
+# (split.apply_realpair_flat).  Held against the same problem without the
+# element (2-channel): G to 1e-8 and Sigma to 1e-6 in f64 (the JAX suite's
+# 4- against 2-channel bounds, tests/test_real_fastpath.py:150-178), G to
+# 1e-5 in single precision (the complex64 G bound of
+# tests/test_torch_bhz.py, RTOL_GF_SINGLE).
+RP_CFG = dict(nlat=4, norb=1, nspin=1, nbath=1, uloc=[4.0], beta=100.0,
+              lmats=256, lreal=32, ed_verbose=0)
+
+
+def realpair_setup(workdir, bond, gf_precision):
+    from cdmft_lanc_ed_torch import EDConfig, EDSolver
+    cfg = EDConfig(**RP_CFG, ed_gf_precision=gf_precision, work_dir=workdir)
+    basis = np.zeros((2 if bond else 1, 4, 4, 1, 1, 1, 1), complex)
+    for i in range(4):
+        basis[0, i, i, 0, 0, 0, 0] = 1.0
+    lam = [[0.5]]
+    if bond:
+        basis[1, 0, 1, 0, 0, 0, 0], basis[1, 1, 0, 0, 0, 0, 0] = 1j, -1j
+        lam = [[0.5, 0.0]]
+    solver = EDSolver(cfg)
+    solver.set_hbath(basis, np.array(lam))
+    return solver, solver.init_solver(), plaquette_hloc()
+
+
+def phase_realpair_gf(workdir, peaks):
+    """The 4-channel GF of a real problem through apply_realpair_flat, in
+    f64 and in single precision, against the 2-channel GF; the real kernel
+    checked and timed over the single-precision run's launch mix.  Returns
+    that run's real-kernel launches."""
+    import torch
+    from cdmft_lanc_ed_torch.ops import fused, split
+    runs = {}
+    for prec in ("double", "single"):
+        for bond in (False, True):
+            solver, bath, hloc = realpair_setup(workdir, bond, prec)
+            fused.launches = 0
+            fused.real_shapes.clear()
+            n0 = split.realpair_applications
+            torch.cuda.synchronize()
+            t0 = time.time()
+            solver.solve(bath, hloc)
+            torch.cuda.synchronize()
+            runs[prec, bond] = dict(
+                g=solver.gimp_matsubara(), s=solver.sigma_matsubara(),
+                seconds=time.time() - t0, stages_s=dict(solver.timers.totals),
+                chan4=not solver.gf.spectrum.symmetric,
+                realpair=split.realpair_applications - n0,
+                launches=fused.launches, shapes=Counter(fused.real_shapes))
+    sp = runs["single", True]
+    mix = kernel_mix("fused_real_matvec", sp["shapes"], peaks)
+
+    def gap(prec, key):
+        return float(np.abs(runs[prec, True][key]
+                            - runs[prec, False][key]).max())
+
+    checks = {
+        "chan4_through_realpair": all(
+            runs[p, True]["chan4"] and runs[p, True]["realpair"] > 0
+            and not runs[p, False]["chan4"] for p in ("double", "single")),
+        "g_f64": gap("double", "g") <= 1e-8,
+        "sigma_f64": gap("double", "s") <= 1e-6,
+        "g_single": gap("single", "g") <= 1e-5,
+        "sigma_finite": all(bool(np.isfinite(r["s"]).all())
+                            for r in runs.values()),
+        "kernel_launched": sp["launches"] > 0,
+        "kernel_matches_plain_over_the_mix": not mix["failed_checks"]}
+    emit({"phase": "realpair_gf", "ns": 8,
+          "g_gap": {p: gap(p, "g") for p in ("double", "single")},
+          "sigma_gap": {p: gap(p, "s") for p in ("double", "single")},
+          "realpair_applications": {p: runs[p, True]["realpair"]
+                                    for p in ("double", "single")},
+          "seconds": {f"{p}_{'chan4' if b else 'chan2'}": r["seconds"]
+                      for (p, b), r in runs.items()},
+          "gf_s": {f"{p}_{'chan4' if b else 'chan2'}":
+                   r["stages_s"].get("greens_functions")
+                   for (p, b), r in runs.items()},
+          "fused_real_matvec_launches": sp["launches"],
+          "real_launches_by_shape": top_shapes(sp["shapes"]),
+          "real_kernel_over_the_mix": mix, "checks": checks})
+    if not all(checks.values()):
+        fail("realpair_gf", f"checks failed: {checks}")
+    return sp["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1272,11 +1604,16 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         doped_launches = phase_doped_loop(wd, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-        phase_bhz_solve(wd, peaks)
+        rp_launches = phase_realpair_gf(wd, peaks)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+        phase_bhz_post(*phase_bhz_solve(wd, peaks))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         pair_launches = phase_bhz_loop(wd, args.bhz_loops, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         km_launches = phase_kanemele_solve(wd, peaks)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+        edge_launches, conf, edge = phase_edge_loop(wd, peaks)
+        phase_edge_post(conf, edge)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         blk_launches = phase_large_solve(wd, args.profile)
 
@@ -1294,11 +1631,11 @@ def main():
 
     emit({"kernels": [
         entry("fused_real_matvec", "pallas_fused.py:96",
-              {"loop": launches, "doped_loop": doped_launches}, worst,
-              timing),
+              {"loop": launches, "doped_loop": doped_launches,
+               "realpair_gf": rp_launches}, worst, timing),
         entry("fused_pair_matvec", "pallas_fused.py:179",
-              {"bhz_loop": pair_launches, "kanemele_solve": km_launches},
-              pair_worst, pair_timing),
+              {"bhz_loop": pair_launches, "kanemele_solve": km_launches,
+               "edge_loop": edge_launches}, pair_worst, pair_timing),
         entry("blk_spmm", "large.py:403", {"large_solve": blk_launches},
               blk_timing["max_abs_err"], blk_timing)],
         "seconds": time.time() - t_start})

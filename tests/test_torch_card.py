@@ -283,3 +283,82 @@ def test_large_matvec_on_card(card):
     assert float((y32.double() - y64).abs().max()) \
         <= 2e-4 * float(y64.abs().max())
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,u", [(128, 56), (128, 128), (56, 128)])
+@pytest.mark.parametrize("batched", [False, True])
+def test_realpair_on_card(card, d, u, batched):
+    """A real operator on complex64 vectors (the 4-channel GF of a real
+    problem; the smoke's realpair_gf phase launches (56, 128, 56)): both
+    planes of 28 vectors in one real-kernel launch of B=56 (a batched
+    operator: one launch per plane), against the f64 product within the
+    real kernel's bound."""
+    rng = np.random.default_rng(41)
+    nv = 28
+    lead = (nv,) if batched else ()
+
+    def r(*shape):
+        return torch.as_tensor(rng.normal(size=lead + shape), device=card)
+
+    op = split.DenseRealOp(
+        diag=r(d, u), hdw=r(d, d), hupT=r(u, u),
+        nd_amp=torch.zeros(lead + (0,), device=card, dtype=torch.float64),
+        nd_upT=torch.zeros(lead + (0, u, u), device=card,
+                           dtype=torch.float64),
+        nd_dw=torch.zeros(lead + (0, d, d), device=card,
+                          dtype=torch.float64))
+    op32 = split.DenseRealOp(**{k: getattr(op, k).float() for k in (
+        "diag", "hdw", "hupT", "nd_amp", "nd_upT", "nd_dw")})
+    x = torch.as_tensor(rng.normal(size=(nv, d * u))
+                        + 1j * rng.normal(size=(nv, d * u)), device=card)
+    n0, s0 = fused.launches, fused.real_shapes[(2 * nv, d, u)]
+    y32 = split.apply_realpair_flat(op32, x.to(torch.complex64))
+    torch.cuda.synchronize()
+    if batched:
+        assert fused.launches == n0 + 2
+    else:
+        assert fused.launches == n0 + 1
+        assert fused.real_shapes[(2 * nv, d, u)] == s0 + 1
+    y64 = split.apply_realpair_flat(op, x)
+    assert fused.launches == n0 + (2 if batched else 1)
+    assert float((y32.to(torch.complex128) - y64).abs().max()) \
+        <= 2e-4 * float(y64.abs().max())
+
+
+@pytest.mark.cuda
+def test_pair_kernel_at_the_edge_cluster_batch(card):
+    """The edge loop's cluster (one BHZ layer, Nx=2, 2 replica baths:
+    Ns=12) in its half-filled (6,6) sector, 924x924 factors in the 1024
+    bucket, stacked nine deep as the batched Krylov stage stacks
+    same-bucket sectors: one pair-kernel launch of (9, 1024, 1024) against
+    the complex128 product within the pair kernel's bound."""
+    from cdmft_lanc_ed_torch import EDConfig, bath
+    from cdmft_lanc_ed_torch.models import bhz
+    from cdmft_lanc_ed_torch.ops import sector_ham
+    model = dict(mh=1.0, ts=0.25, lam=0.3)
+    cfg = EDConfig(nlat=2, norb=2, nspin=2, nbath=2, uloc=[2.0, 2.0],
+                   ust=0.5, ed_verbose=0)
+    basis, lam0 = bhz.bhz_bath_basis(2, 1, **model)
+    hb = bath.set_hbath(basis, np.tile(lam0, (2, 1)), cfg)
+    b = bath.init_dmft_bath(cfg, hb)
+    op = sector_ham.build_sector_operator(
+        cfg, bhz.bhz_cluster_hloc(2, 1, **model), bath.bath_h_rec(cfg, hb, b),
+        bath.diag_hybr_of(cfg, b), 6, 6)
+    assert not split.op_is_real(op) and (op.dim_dw, op.dim_up) == (924, 924)
+    ops = [op] * 9
+    st32 = split.stack_pair_ops(ops, (1024, 1024), dtype=torch.float32,
+                                device=card)
+    st64 = split.stack_pair_ops(ops, (1024, 1024), device=card)
+    rng = np.random.default_rng(43)
+    x = torch.as_tensor(rng.normal(size=(9, 1024 * 1024))
+                        + 1j * rng.normal(size=(9, 1024 * 1024)),
+                        device=card)
+    n0, s0 = fused.pair_launches, fused.pair_shapes[(9, 1024, 1024)]
+    y32 = split.apply_pair_flat_batched(st32, x.to(torch.complex64))
+    torch.cuda.synchronize()
+    assert fused.pair_launches == n0 + 1
+    assert fused.pair_shapes[(9, 1024, 1024)] == s0 + 1
+    y64 = split.apply_pair_flat_batched(st64, x)
+    assert float((y32.to(torch.complex128) - y64).abs().max()) \
+        <= 1e-3 * float(y64.abs().max())
