@@ -16,7 +16,10 @@
 // large-sector solve and GF chain.  Instantiations: f32 (the Krylov stage,
 // IEEE fmaf, never TF32), bf16 values and x with f32 accumulation (the
 // coarse stage), f64 (refine, f64 solves and GF chains), complex64 and
-// complex128 (complex sector Hamiltonians; interleaved re/im).
+// complex128 (complex sector Hamiltonians; interleaved re/im), and bf16
+// complex values and x (interleaved (re, im) bf16 pairs, 4 bytes per
+// entry) with float2 accumulation and complex64 output (the coarse stage
+// of complex sectors: the JAX package's bf16 re/im/re+im tile planes).
 //
 // What bounds it on an H100: the factor is ~0.5% of its tiles (Ns=16:
 // ~1.1e5 nonzeros, ~8.6 per row), so the product needs 2·nnz·n operations
@@ -38,11 +41,12 @@
 // all: a warp owns one output row, loads that row's nonzeros (~8.6: one
 // coalesced load of up to 32 (column, value) pairs), and for each
 // broadcasts the pair by shuffle and streams the source row's slice with
-// 16-byte loads (float4, double2, 8 bf16, 2 complex64, 1 complex128);
+// 16-byte loads (float4, double2, 8 bf16, 4 bf16 pairs, 2 complex64, 1
+// complex128);
 // the ~5.7 GB (f32) of x rows that the nonzeros gather then stream from
 // L2, which is what bounds the kernel after the redesign.  Sums run in
 // ascending global column order with IEEE fmaf/fma (complex: four real
-// FMAs); bf16 values and x are widened to f32.  y is written once with
+// FMAs); bf16 values and x, real or complex, are widened to f32.  y is written once with
 // streaming stores, so it does not push the x slice out of L2.  A row
 // without nonzeros writes zeros.  The ragged edge of n is masked; where n
 // or a pointer does not allow 16-byte accesses, the same kernel runs with
@@ -54,11 +58,11 @@
 
 namespace {
 
-// 16-byte accesses per lane and row: a 2 KB slice of each x row (512 f32,
-// 1024 bf16, 256 f64 or complex64, 128 complex128 columns), 26 MB for
-// the 12,928 rows of an Ns=16 factor.  On an H100 a 1 KB slice was no
-// faster in any type and slower in f64, the type of nearly every
-// large-sector launch.
+// 16-byte accesses per lane and row: a 2 KB slice of each x row (512 f32
+// or bf16 complex, 1024 bf16, 256 f64 or complex64, 128 complex128
+// columns), 26 MB for the 12,928 rows of an Ns=16 factor.  On an H100 a
+// 1 KB slice was no faster in any type and slower in f64, the type of
+// nearly every large-sector launch.
 constexpr int WARPS = 8;            // rows per block, one per warp
 constexpr int NT = 32 * WARPS;      // 256 threads
 constexpr int NV = 4;               // 16-byte accesses per lane per row
@@ -67,6 +71,9 @@ constexpr int NV = 4;               // 16-byte accesses per lane per row
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float2 widen(__nv_bfloat162 v) {
+  return __bfloat1622float2(v);
 }
 __device__ __forceinline__ double widen(double v) { return v; }
 __device__ __forceinline__ float2 widen(float2 v) { return v; }
@@ -152,6 +159,12 @@ __device__ __forceinline__ void store(double* y, const double (&a)[2]) {
 __device__ __forceinline__ void store(float2* y, const float2 (&a)[2]) {
   __stcs(reinterpret_cast<float4*>(y),
          make_float4(a[0].x, a[0].y, a[1].x, a[1].y));
+}
+__device__ __forceinline__ void store(float2* y, const float2 (&a)[4]) {
+  __stcs(reinterpret_cast<float4*>(y),
+         make_float4(a[0].x, a[0].y, a[1].x, a[1].y));
+  __stcs(reinterpret_cast<float4*>(y + 2),
+         make_float4(a[2].x, a[2].y, a[3].x, a[3].y));
 }
 __device__ __forceinline__ void store(double2* y, const double2 (&a)[1]) {
   __stcs(y, a[0]);
@@ -263,3 +276,4 @@ BLK_SPMM_ENTRY(blk_spmm_bf16, __nv_bfloat16, __nv_bfloat16, float)
 BLK_SPMM_ENTRY(blk_spmm_f64, double, double, double)
 BLK_SPMM_ENTRY(blk_spmm_c64, float2, float2, float2)
 BLK_SPMM_ENTRY(blk_spmm_c128, double2, double2, double2)
+BLK_SPMM_ENTRY(blk_spmm_bf16c, __nv_bfloat162, __nv_bfloat162, float2)

@@ -13,10 +13,20 @@ the f32 (complex64) Krylov stage on the fused CUDA H·v and refines in f64
 Spin factors beyond the dense-factor limit (Ns >= 16) take the
 block-sparse large kits of ``ops/large.py`` (the JAX package's
 diag.py:561-675, single-chip branches): each such sector is solved on its
-own, its eigenvectors stay on the card.  A real mixed solve runs a bf16
-coarse stage, the f32 stage and the f64 refine, all on the tile kit (the
-JAX package's two-kit f64 routing through ``hier_dev`` existed for a
-16 GB chip and is not ported); complex mixed solves have no coarse stage.
+own, its eigenvectors stay on the card.  A mixed solve runs a bf16
+coarse stage, the f32 (complex64) stage and the f64 (complex128) refine,
+all on the tile kit, for real and complex sectors alike (the JAX
+package's two-kit f64 routing through ``hier_dev`` existed for a 16 GB
+chip and is not ported).
+
+With a mesh installed (``parallel.multichip.set_solver_mesh``), the
+routing is the JAX package's (diag.py:187-500): same-bucket batches are
+padded to a multiple of the "sector" axis (pad slots filled with
+compatible leftover sectors, else duplicates) and split over its ranks,
+which then gather every eigenpair; a sector of dim >= 64·lanc_dim_threshold
+is solved on the dw-sharded block-sparse kits of
+``parallel/sharded_large.py`` whenever the mesh has a "dw" axis.  Every
+rank runs the whole sweep (SPMD) and ends with the whole state list.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ from .config import EDConfig
 from .device import budget_bytes
 from .eigenspace import StateList
 from .ops import large, lanczos, sector_ham, split
+from .parallel import multichip, sharded_large
 from .utils import fock
 
 
@@ -138,6 +149,17 @@ def large_sector(ns: int, nup: int, ndw: int) -> bool:
         > split.DENSE_FACTOR_MAX
 
 
+def _dw_mesh(cfg: EDConfig, dim: int):
+    """The installed mesh when a sector of ``dim`` is solved dw-sharded
+    (a "dw" axis and dim >= 64·lanc_dim_threshold: the JAX package's
+    diag.py:432-437), else None."""
+    mesh = multichip.get_solver_mesh()
+    if multichip.has_axis(mesh, "dw") and \
+            dim >= 64 * cfg.lanc_dim_threshold:
+        return mesh
+    return None
+
+
 def _kit(op: sector_ham.SectorOperator, dtype, device):
     """(apply_fn, dev, is_real, dim_p, embed, extract): the real kit of a
     real ``op``, else the complex pair kit; the block-sparse large kits
@@ -155,11 +177,18 @@ def _kit(op: sector_ham.SectorOperator, dtype, device):
 
 
 def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
-                   results: dict) -> None:
+                   results: dict, leftovers=(), mesh=None) -> None:
     """One batched solve over same-bucket sectors ``members``
     [(isector, op, dim, neigen, nblock, nitermax)] of one kind (``key``'s
     last entry: real or complex), chunked so that the Krylov bases and
-    operator stacks stay within a quarter of the device memory."""
+    operator stacks stay within a quarter of the device memory.
+
+    With a "sector" axis of size n > 1 on ``mesh``, each chunk is padded
+    to a multiple of n (the JAX package's diag.py:262-283): pad slots take
+    sectors of ``leftovers`` (a list, consumed) that embed in the bucket,
+    are of the same kind and term count and exceed ncv, then duplicates;
+    each rank solves its share and the eigenpairs are gathered over the
+    axis."""
     ddp, dup, nterms, is_real = key
     dim_p = ddp * dup
     planes = 1 if is_real else 2        # complex vectors and factors
@@ -175,21 +204,42 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
         stack, apply_b = split.stack_pair_ops, split.apply_pair_flat_batched
         eigh, mixed = (lanczos.lanczos_eigh_split_batched,
                        lanczos.lanczos_eigh_mixed_split_batched)
+    nsec = multichip.sector_axis_size(mesh)
     for lo in range(0, len(members), bmax):
         chunk = members[lo:lo + bmax]
         if len(chunk) < 2:
             break
         t0 = time.time()
-        neigen_g = max(m[3] for m in chunk)
-        maxiter_g = max(m[5] for m in chunk) * ncv_g
+        batch, fillers = list(chunk), []
+        if nsec > 1 and len(batch) % nsec:
+            padn = nsec - len(batch) % nsec
+            for lv in list(leftovers):
+                if len(fillers) >= padn:
+                    break
+                lop = lv[1]
+                if (lop.dim_dw <= ddp and lop.dim_up <= dup
+                        and len(lop.nd_terms) == nterms
+                        and split.op_is_real(lop) == is_real
+                        and lv[2] > ncv_g):
+                    fillers.append(lv)
+                    leftovers.remove(lv)
+            batch += fillers
+            batch += [batch[j % len(batch)]
+                      for j in range(padn - len(fillers))]
+        solved = list(chunk) + fillers
+        neigen_g = max(m[3] for m in solved)
+        maxiter_g = max(m[5] for m in solved) * ncv_g
         rng = np.random.default_rng(8527)
         # start vectors drawn member by member, as the JAX package draws
         # them (a complex member takes its real then its imaginary part)
         v0 = np.stack([split.embed_real(
             rng.normal(size=m[2]) if is_real
             else rng.normal(size=m[2]) + 1j * rng.normal(size=m[2]),
-            m[1].dim_dw, m[1].dim_up, ddp, dup) for m in chunk])
-        ops = [m[1] for m in chunk]
+            m[1].dim_dw, m[1].dim_up, ddp, dup) for m in batch])
+        # this rank's share of the batch (all of it without a sector axis)
+        mine = multichip.shard_batched_stack(range(len(batch)), mesh)
+        ops = [batch[i][1] for i in mine]
+        v0 = v0[mine.start:mine.stop]
         if cfg.ed_precision == "mixed":
             def fb64(i, v0_row, _ops=ops):
                 # full-f64 polish at the caller's tolerance
@@ -203,7 +253,7 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
                     v0=v0_row, op=dev_i)
 
             res_list = mixed(
-                apply_b, apply_b, len(chunk), dim_p, neigen=neigen_g,
+                apply_b, apply_b, len(ops), dim_p, neigen=neigen_g,
                 ncv=ncv_g, maxiter=maxiter_g, tol=cfg.lanc_tolerance, v0=v0,
                 op32=stack(ops, (ddp, dup), dtype=torch.float32,
                            device=device),
@@ -211,21 +261,26 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
                 fallback64=fb64, vec_rtol=cfg.ed_mixed_vec_tol)
         else:
             res_list = eigh(
-                apply_b, len(chunk), dim_p, neigen=neigen_g, ncv=ncv_g,
+                apply_b, len(ops), dim_p, neigen=neigen_g, ncv=ncv_g,
                 maxiter=maxiter_g, tol=cfg.lanc_tolerance, v0=v0,
                 op=stack(ops, (ddp, dup), device=device))
-        for m, res in zip(chunk, res_list):
+        gathered = multichip.gather_batched(
+            [(np.asarray(r.eigenvalues), np.asarray(r.eigenvectors),
+              r.converged) for r in res_list], mesh)
+        for m, (vals, vecs, converged) in zip(solved, gathered):
             isector, op, dim, neigen = m[0], m[1], m[2], m[3]
-            if not res.converged:
+            if not converged:
                 warnings.warn(
                     f"sector {isector}: batched eigensolve halted above "
                     f"the certification floor; retained eigenpairs may be "
                     f"degraded", RuntimeWarning)
-            vecs = split.extract_real(np.asarray(res.eigenvectors)[:neigen],
-                                      op.dim_dw, op.dim_up, ddp, dup)
-            results[isector] = (np.asarray(res.eigenvalues)[:neigen], vecs)
-        verbose(f"batched {len(chunk)} {'real' if is_real else 'complex'} "
-                f"sectors (bucket {ddp}x{dup}, ncv={ncv_g}) "
+            vecs = split.extract_real(vecs[:neigen], op.dim_dw, op.dim_up,
+                                      ddp, dup)
+            results[isector] = (vals[:neigen], vecs)
+        pad = f", {len(mine)} of {len(batch)} on this rank, " \
+            f"{len(fillers)} pad slots filled" if nsec > 1 else ""
+        verbose(f"batched {len(solved)} {'real' if is_real else 'complex'} "
+                f"sectors (bucket {ddp}x{dup}, ncv={ncv_g}{pad}) "
                 f"[{time.time() - t0:6.2f}s]")
 
 
@@ -246,18 +301,17 @@ def _solve_large(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
             embed(rng.normal(size=dim) + 1j * rng.normal(size=dim))
         op64 = lambda: large.build_pair_padded_large(  # noqa: E731
             op, dtype=torch.float64, device=device)[0]
-        if real:
-            # two-stage Krylov: bf16 tiles for the cold restarts, f32 below
-            # bf16 resolution, the f64 refine certifies
-            dev16 = large.build_real_padded_large(
-                op, dtype=torch.bfloat16, reuse=dev32, device=device)[0]
-            res = lanczos.lanczos_eigh_mixed_real(
-                apply1, apply1, dim_p, v0=v0, op32=dev32, op64=op64,
-                op16=dev16, vec_rtol=cfg.ed_mixed_vec_tol, **kw)
-        else:
-            res = lanczos.lanczos_eigh_mixed(
-                apply1, apply1, dim_p, v0=v0, op32=dev32, op64=op64,
-                vec_rtol=cfg.ed_mixed_vec_tol, **kw)
+        # two-stage Krylov: bf16 tiles (real, or complex (re, im) pairs)
+        # for the cold restarts, f32 / complex64 below bf16 resolution,
+        # the f64 / complex128 refine certifies; the bf16 operator is
+        # passed, not held, so the solver frees it after its stage
+        mixed = lanczos.lanczos_eigh_mixed_real if real \
+            else lanczos.lanczos_eigh_mixed
+        res = mixed(apply1, apply1, dim_p, v0=v0, op32=dev32, op64=op64,
+                    op16=large.build_pair_padded_large(
+                        op, dtype=torch.bfloat16, reuse=dev32,
+                        device=device)[0],
+                    vec_rtol=cfg.ed_mixed_vec_tol, **kw)
     else:
         dev, _, dim_p, embed, extract = large.build_pair_padded_large(
             op, dtype=torch.float64, device=device)
@@ -273,8 +327,52 @@ def _solve_large(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
                               res.iterations, res.converged)
 
 
+def _solve_sharded(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
+                   device, mesh):
+    """One sector on the dw-sharded block-sparse kits (the JAX package's
+    diag.py:432-500): real tiles for a real sector, complex ones for a
+    complex sector; mixed is the f32 (complex64) Krylov stage and the f64
+    (complex128) refine, without a coarse stage, as in the JAX mesh
+    branch.  Each rank holds its rows of the Krylov basis; the start
+    vector is drawn whole from the seed, as the serial solve draws it,
+    and sliced; the eigenvectors are gathered whole onto every rank at
+    the end (on the device for a large sector, on the host otherwise)."""
+    rng = np.random.default_rng(8527)
+    real = split.op_is_real(op)
+    v = rng.normal(size=dim) if real else \
+        rng.normal(size=dim) + 1j * rng.normal(size=dim)
+    apply1 = sharded_large.apply_sharded_large_real_flat
+    kw = dict(neigen=neigen, ncv=nblock, maxiter=nitermax * nblock,
+              tol=cfg.lanc_tolerance, device_vectors=True)
+    kit = sharded_large.build_sharded_large_kit
+    if cfg.ed_precision == "mixed":
+        dev32, _, dim_loc, embed, extract = kit(op, mesh, torch.float32,
+                                                device=device)
+        mixed = lanczos.lanczos_eigh_mixed_real if real \
+            else lanczos.lanczos_eigh_mixed
+        res = mixed(apply1, apply1, dim_loc, v0=embed(v), op32=dev32,
+                    op64=lambda: kit(op, mesh, torch.float64, reuse=dev32,
+                                     device=device)[0],
+                    vec_rtol=cfg.ed_mixed_vec_tol, **kw)
+    else:
+        dev, _, dim_loc, embed, extract = kit(op, mesh, torch.float64,
+                                              device=device)
+        solve = lanczos.lanczos_eigh_real if real \
+            else lanczos.lanczos_eigh_split
+        res = solve(apply1, dim_loc, v0=embed(v), op=dev, **kw)
+    vecs = extract(res.eigenvectors)
+    if not is_large(op):
+        vecs = vecs.cpu().numpy()
+    return lanczos.EighResult(res.eigenvalues, vecs, res.iterations,
+                              res.converged)
+
+
 def _solve_serial(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
                   device):
+    mesh = _dw_mesh(cfg, dim)
+    if mesh is not None:
+        return _solve_sharded(cfg, op, dim, neigen, nblock, nitermax,
+                              device, mesh)
     if is_large(op):
         return _solve_large(cfg, op, dim, neigen, nblock, nitermax, device)
     rng = np.random.default_rng(8527)
@@ -360,7 +458,10 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
 
     # --- sector-parallel batched dispatch: same-bucket Lanczos sectors of
     # one kind (real or complex) run through one batched thick-restart
-    # stream; large sectors are solved one by one ---
+    # stream (split over the mesh's "sector" axis); large sectors, and on
+    # a "dw" mesh every sector of dim >= 64·lanc_dim_threshold, are solved
+    # one by one ---
+    mesh = multichip.get_solver_mesh()
     batched_results = {}
     groups = {}
     for isector in active:
@@ -368,21 +469,30 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
             sector_plan(isector)
         if not lanc_solve:
             continue
-        if large_sector(ns, nup, ndw):
+        if _dw_mesh(cfg, dim) is not None or large_sector(ns, nup, ndw):
             continue                       # solved on its own below
         op = build(nup, ndw)
         key = (split._bucket(op.dim_dw), split._bucket(op.dim_up),
                len(op.nd_terms), split.op_is_real(op))
         groups.setdefault(key, []).append(
             (isector, op, dim, neigen, nblock, nitermax))
+    # groups of one member, and members within ncv, are solved one by one
+    # (or fill the pad slots of a batch split over the "sector" axis)
+    batchable, leftovers = [], []
     for key, members in groups.items():
         if len(members) < 2:
+            leftovers.extend(members)
             continue
         ncv_g = max(m[4] for m in members)
+        leftovers.extend(m for m in members if m[2] <= ncv_g)
         members = [m for m in members if m[2] > ncv_g]
-        if len(members) >= 2:
-            _solve_batched(cfg, members, key, ncv_g, device, verbose,
-                           batched_results)
+        if len(members) < 2:
+            leftovers.extend(members)
+            continue
+        batchable.append((key, ncv_g, members))
+    for key, ncv_g, members in batchable:
+        _solve_batched(cfg, members, key, ncv_g, device, verbose,
+                       batched_results, leftovers, mesh)
 
     for isector in active:
         nup, ndw, dim, neigen, nblock, nitermax, lanc_solve = \

@@ -19,9 +19,11 @@ sector, ED_GF_NORMAL.f90):
   f64/complex128 by default, f32/complex64 on the fused CUDA H·v);
 * a large target sector (Ns >= 16) takes the block-sparse kits of
   ``ops/large.py`` with the batch folded into the SpMM width (the JAX
-  package's gf.py:364-416, single chip); a retained state on the card is
-  excited on the card, and its injections are built there chunk by
-  chunk, so no large vector crosses to the host;
+  package's gf.py:364-416, single chip), or, with a mesh of a "dw" axis
+  installed, the dw-sharded appliers of ``parallel/sharded_large.py``
+  (gf.py:320-365: each rank runs its rows of every chain); a retained
+  state on the card is excited on the card, and its injections are built
+  there chunk by chunk, so no large vector crosses to the host;
 * Sigma = G0^{-1} - G^{-1} is one batched complex128 inversion over all
   frequencies on the device.
 """
@@ -38,6 +40,7 @@ from .config import EDConfig
 from .device import budget_bytes
 from .diag import DiagState, SectorBuilder, _kit, is_large, large_sector
 from .ops import large, lanczos, split
+from .parallel import multichip, sharded_large
 from .utils import fock
 from .utils.reshape import lso2nnn, nnn2lso
 
@@ -403,25 +406,43 @@ def _chains_large(entries, op, is_real, nlanc, gf_dtype, device):
     width.  Rows are built on the device chunk by chunk, each chunk
     holding its f64 start rows, the chain's three vectors and the
     folded applier's temporaries within a quarter of the device memory
-    (at Ns=16 a few rows: one f32 vector of the (9,8) sector is 0.6 GB)."""
-    if split.op_is_real(op) and is_real:
-        dev, dim_p, embed, _ = large.build_real_padded_large(
-            op, dtype=gf_dtype, device=device)
-        tridiag = lanczos.lanczos_tridiag_batched_real
-    else:
-        dev, _, dim_p, embed, _ = large.build_pair_padded_large(
-            op, dtype=gf_dtype, device=device)
-        tridiag = lanczos.lanczos_tridiag_batched_split
+    (at Ns=16 a few rows: one f32 vector of the (9,8) sector is 0.6 GB).
+    With a "dw" mesh installed the chains run on the sharded appliers:
+    each rank takes its rows of the start rows and the exchanges add
+    four vector copies to the working set."""
+    real_op = split.op_is_real(op)
+    mesh = multichip.get_solver_mesh()
     planes = 1 if is_real else 2
     itemsize = torch.empty((), dtype=gf_dtype).element_size()
-    row_bytes = dim_p * planes * (8 + 8 * itemsize)
+    if multichip.has_axis(mesh, "dw"):
+        build = sharded_large.build_sharded_large_real if real_op \
+            else sharded_large.build_sharded_large_pair
+        dev = build(op, mesh, dtype=gf_dtype, device=device)
+        dim_loc = dev.ddp // dev.ndw * dev.dup
+        apply_b = sharded_large.apply_sharded_large_real_flat_batched
+
+        def embed(v):
+            return sharded_large.shard_rows(dev, v)
+
+        row_bytes = planes * (8 * dev.ddp * dev.dup
+                              + 12 * itemsize * dim_loc)
+    else:
+        if real_op and is_real:
+            dev, dim_p, embed, _ = large.build_real_padded_large(
+                op, dtype=gf_dtype, device=device)
+        else:
+            dev, _, dim_p, embed, _ = large.build_pair_padded_large(
+                op, dtype=gf_dtype, device=device)
+        apply_b = large.apply_large_real_flat_batched
+        row_bytes = dim_p * planes * (8 + 8 * itemsize)
+    tridiag = lanczos.lanczos_tridiag_batched_real if real_op and is_real \
+        else lanczos.lanczos_tridiag_batched_split
     rows_max = max(1, int(budget_bytes(device, 0.25) // row_bytes))
     nrows = sum(len(e[1]) for e in entries)
     for lo in range(0, nrows, rows_max):
         v0 = embed(_take_rows(entries, lo, min(nrows, lo + rows_max),
                               device))
-        yield lo, tridiag(large.apply_large_real_flat_batched, v0, nlanc,
-                          op=dev, dtype=gf_dtype)
+        yield lo, tridiag(apply_b, v0, nlanc, op=dev, dtype=gf_dtype)
         del v0
 
 

@@ -19,6 +19,15 @@ projected matrix is Hermitian, and a Lanczos alpha is the real part of
 <v|Hv>.  The real names (``lanczos_eigh_real``, ...) and the JAX
 package's split-plane names (``lanczos_eigh_split``, ...) are the entry
 points of the two kinds of sector.
+
+Sharded vectors (``parallel/sharded_large.py``: each rank of a "dw"
+process group holds rows of the sector vector) need every inner product,
+norm and Gram block summed over the group, which the JAX package's
+single-controller sharding does implicitly.  The operator carries that
+group (``op.group``) and :func:`_allsum` is the one place that sums over
+it: the dots, norms and Gram products of the thick restart, the refine
+and :func:`_tridiag` go through it, so the host-side Ritz problems see
+identical inputs on every rank.  Without a group nothing changes.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import budget_bytes
 from .split import complex_dtype, real_dtype
@@ -40,6 +50,32 @@ class EighResult(NamedTuple):
 
 def _device_of(op) -> torch.device:
     return op.diag.device
+
+
+def _group_of(op):
+    """The process group over which ``op``'s vectors are sharded (a
+    sharded operator's "dw" group), or None."""
+    return getattr(op, "group", None)
+
+
+def _allsum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``, a partial sum over this rank's rows, summed over ``group``
+    (identity without one).  Every reduction over sharded vectors goes
+    through here."""
+    if group is None:
+        return t
+    t = t.contiguous()
+    dist.all_reduce(torch.view_as_real(t) if t.is_complex() else t,
+                    group=group)
+    return t
+
+
+def _norms(x: torch.Tensor, dim: int, group, keepdim: bool = False):
+    """2-norms of ``x`` along ``dim`` over the rows of every rank."""
+    if group is None:
+        return torch.linalg.vector_norm(x, dim=dim, keepdim=keepdim)
+    sq = torch.linalg.vector_norm(x, dim=dim, keepdim=keepdim) ** 2
+    return _allsum(sq, group).sqrt()
 
 
 def _eps(dtype: torch.dtype) -> float:
@@ -79,14 +115,15 @@ def _tridiag(apply_fn, v0, niter: int, op, dtype):
     large-sector injections) in ``dtype``.  Returns host (alphas
     [B, niter], betas [B, niter-1], norms [B])."""
     device = _device_of(op)
+    group = _group_of(op)
     if isinstance(v0, torch.Tensor):
-        nrm = torch.linalg.vector_norm(v0, dim=1)
+        nrm = _norms(v0, 1, group)
         norms0 = nrm.cpu().numpy()
         v = (v0 / torch.where(nrm > 1e-300, nrm, 1.0)[:, None]).to(
             device=device, dtype=dtype)
     else:
         v0 = np.asarray(v0)
-        norms0 = np.linalg.norm(v0, axis=1)
+        norms0 = _host_norms(v0, group, device)
         scale = np.where(norms0 > 1e-300, norms0, 1.0)
         v = torch.as_tensor(np.ascontiguousarray(v0 / scale[:, None])).to(
             device=device, dtype=dtype)
@@ -98,9 +135,9 @@ def _tridiag(apply_fn, v0, niter: int, op, dtype):
     betas = torch.empty(niter, nb, dtype=rdtype, device=device)
     for it in range(niter):
         w = apply_fn(op, v)
-        alpha = (v.conj() * w).sum(dim=1).real          # Re <v|Hv>
+        alpha = _allsum((v.conj() * w).sum(dim=1).real, group)  # Re <v|Hv>
         w = w - alpha[:, None] * v - beta_prev[:, None] * p
-        beta = torch.linalg.vector_norm(w, dim=1)
+        beta = _norms(w, 1, group)
         good = (beta > 1e-200)[:, None]
         nxt = torch.where(good, w / beta.clamp_min(1e-300)[:, None],
                           torch.zeros_like(w))
@@ -212,6 +249,7 @@ def _expand(apply_fn, op, b: torch.Tensor, k: int):
     """CGS2 Lanczos expansion of the basis ``b`` [B, ncv+1, dim] from row
     ``k`` to row ncv, in place.  Returns device (cs [ncv, B, ncv],
     betas [ncv, B]); rows j < k of both stay zero."""
+    group = _group_of(op)
     nb, ncv1, _ = b.shape
     ncv = ncv1 - 1
     cs = torch.zeros(ncv, nb, ncv, dtype=b.dtype, device=b.device)
@@ -221,15 +259,21 @@ def _expand(apply_fn, op, b: torch.Tensor, k: int):
         w = apply_fn(op, b[:, j])                          # [B, dim]
         q = b[:, : j + 1]
         qh = q.conj()
-        c1 = torch.bmm(qh, w.unsqueeze(2))                 # <q|w> [B, j+1, 1]
+        c1 = _allsum(torch.bmm(qh, w.unsqueeze(2)), group)  # <q|w> [B, j+1, 1]
         w = w - torch.bmm(c1.transpose(1, 2), q).squeeze(1)
-        c2 = torch.bmm(qh, w.unsqueeze(2))
+        c2 = _allsum(torch.bmm(qh, w.unsqueeze(2)), group)
         w = w - torch.bmm(c2.transpose(1, 2), q).squeeze(1)
-        beta = torch.linalg.vector_norm(w, dim=1)
+        beta = _norms(w, 1, group)
         b[:, j + 1] = w / beta.clamp_min(1e-30)[:, None]
         cs[j, :, : j + 1] = (c1 + c2).squeeze(2)
         betas[j] = beta
     return cs, betas
+
+
+# Rotated copy of Krylov vectors above which the restart and the Ritz
+# rotation run in column chunks (at Ns=16 the f64 Ritz copy would be
+# 28 GB)
+_RITZ_CHUNK_BYTES = 1 << 30
 
 
 def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
@@ -286,9 +330,20 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
         sk = torch.as_tensor(np.ascontiguousarray(
             s[:, :, :kfix].transpose(0, 2, 1))).to(device=device,
                                                    dtype=dtype)
-        rot = torch.bmm(sk, basis[:, :ncv])
-        basis[:, kfix] = basis[:, ncv]
-        basis[:, :kfix] = rot
+        copy_bytes = nb * kfix * dim * _itemsize(dtype)
+        if copy_bytes <= _RITZ_CHUNK_BYTES:
+            rot = torch.bmm(sk, basis[:, :ncv])
+            basis[:, kfix] = basis[:, ncv]
+            basis[:, :kfix] = rot
+        else:
+            # in place, column chunk by column chunk (each chunk's rows
+            # depend only on that chunk): a rotated copy would hold kfix
+            # more vectors, half again the basis at Ns=16
+            step = max(1, dim * _RITZ_CHUNK_BYTES // copy_bytes)
+            for c0 in range(0, dim, step):
+                basis[:, :kfix, c0:c0 + step] = torch.bmm(
+                    sk, basis[:, :ncv, c0:c0 + step])
+            basis[:, kfix] = basis[:, ncv]
         t_proj[:] = 0.0
         idx = np.arange(k)
         t_proj[:, idx, idx] = theta[:, :k]
@@ -297,13 +352,8 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
         t_proj[:, :k, k] = b_row.conj()
 
 
-# f64 copy of the Krylov basis above which the Ritz rotation runs in
-# column chunks (at Ns=16 the whole copy would be 28 GB)
-_RITZ_CHUNK_BYTES = 1 << 30
-
-
-def _ritz_vectors(basis: torch.Tensor, s: np.ndarray, neigen: int
-                  ) -> torch.Tensor:
+def _ritz_vectors(basis: torch.Tensor, s: np.ndarray, neigen: int,
+                  group=None) -> torch.Tensor:
     """Normalised f64 (float64 or complex128) Ritz vectors
     [B, neigen, dim] on the device."""
     nb, ncv = s.shape[0], s.shape[1]
@@ -321,7 +371,7 @@ def _ritz_vectors(basis: torch.Tensor, s: np.ndarray, neigen: int
         for c0 in range(0, dim, step):
             vecs[:, :, c0:c0 + step] = torch.bmm(
                 sj, basis[:, :ncv, c0:c0 + step].to(hi))
-    nrm = torch.linalg.vector_norm(vecs, dim=2, keepdim=True)
+    nrm = _norms(vecs, 2, group, keepdim=True)
     return vecs / nrm.clamp_min(1e-300)
 
 
@@ -330,8 +380,11 @@ def _eigh(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
           op16=None):
     """Thick-restart solve of B = len(v0) operators (one batched matvec
     [B, dim] -> [B, dim]) from normalised host start rows ``v0`` [B, dim].
-    Returns B EighResults."""
+    Returns B EighResults.  ``dim`` counts the rows of every rank."""
+    group = _group_of(op)
     b, dim = v0.shape
+    if group is not None:
+        dim *= dist.get_world_size(group)
     neigen = min(neigen, dim)
     ncv = int(min(max(ncv, neigen + 2), dim))
     eps = _eps(dtype)
@@ -339,7 +392,7 @@ def _eigh(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
     theta, s, conv, rel, nmv, basis = _thick_restart(
         apply_fn, op, v0, neigen, ncv, maxiter, tol, dtype, _device_of(op),
         op16=op16)
-    vecs = _ritz_vectors(basis, s, neigen)
+    vecs = _ritz_vectors(basis, s, neigen, group)
     del basis
     if not device_vectors:
         vecs = vecs.cpu().numpy()
@@ -355,14 +408,28 @@ def _one_member(apply_fn):
     return apply_b
 
 
-def _unit(v0: np.ndarray) -> np.ndarray:
-    """One start vector as a normalised one-member batch [1, dim]."""
-    return (v0 / np.linalg.norm(v0))[None]
+def _host_norms(v: np.ndarray, group, device) -> np.ndarray:
+    """Row norms of the host rows ``v`` [B, dim], over every rank's
+    rows of a sharded vector."""
+    if group is None:
+        return np.linalg.norm(v, axis=1)
+    sq = torch.as_tensor(np.sum(np.abs(v) ** 2, axis=1)).to(device)
+    return np.sqrt(_allsum(sq, group).cpu().numpy())
 
 
-def _unit_rows(v0: np.ndarray) -> np.ndarray:
+def _unit(v0: np.ndarray, op=None) -> np.ndarray:
+    """One start vector as a normalised one-member batch [1, dim] (the
+    norm over every rank's rows when ``op`` is sharded)."""
+    if _group_of(op) is None:
+        return (v0 / np.linalg.norm(v0))[None]
+    return _unit_rows(v0[None], op)
+
+
+def _unit_rows(v0: np.ndarray, op=None) -> np.ndarray:
     """Start rows [B, dim], each normalised."""
-    return v0 / np.linalg.norm(v0, axis=1, keepdims=True)
+    if _group_of(op) is None:
+        return v0 / np.linalg.norm(v0, axis=1, keepdims=True)
+    return v0 / _host_norms(v0, _group_of(op), _device_of(op))[:, None]
 
 
 def lanczos_eigh_real(apply_fn, dim: int, neigen: int, ncv: int,
@@ -380,7 +447,8 @@ def lanczos_eigh_real(apply_fn, dim: int, neigen: int, ncv: int,
     ``device_vectors``."""
     if v0 is None:
         v0 = np.random.default_rng(seed).normal(size=dim)
-    return _eigh(_one_member(apply_fn), op, _unit(np.real(np.asarray(v0))),
+    return _eigh(_one_member(apply_fn), op,
+                 _unit(np.real(np.asarray(v0)), op),
                  neigen, ncv, maxiter, tol, dtype, device_vectors,
                  op16=op16)[0]
 
@@ -398,8 +466,9 @@ def lanczos_eigh_split(apply_fn, dim: int, neigen: int, ncv: int,
     :func:`lanczos_eigh_real`.  Eigenvectors come back as host complex128
     arrays [neigen, dim], or as a device tensor with ``device_vectors``."""
     return _eigh(_one_member(apply_fn), op,
-                 _unit(_complex_v0(v0, (dim,), seed)), neigen, ncv, maxiter,
-                 tol, complex_dtype(dtype), device_vectors, op16=op16)[0]
+                 _unit(_complex_v0(v0, (dim,), seed), op), neigen, ncv,
+                 maxiter, tol, complex_dtype(dtype), device_vectors,
+                 op16=op16)[0]
 
 
 def lanczos_eigh_real_batched(apply_fn, nbatch: int, dim: int,
@@ -438,15 +507,43 @@ def lanczos_eigh_split_batched(apply_fn, nbatch: int, dim: int,
 # Rayleigh-Ritz refine (f64) of f32 Krylov vectors
 # ---------------------------------------------------------------------------
 
-def _orth_expand_block(qi: torch.Tensor, block: torch.Tensor, rng
-                       ) -> torch.Tensor:
+def _gram_orthonormal(block: torch.Tensor, group) -> torch.Tensor:
+    """Orthonormal columns spanning ``block`` [dim, m], whose rows are
+    spread over the ranks of ``group``: two passes of whitening by the
+    eigenbasis of the summed Gram matrix (the distributed form of
+    Cholesky QR twice); directions below 1e-10 of the largest singular
+    value are dropped, as the QR path drops them."""
+    for _ in range(2):
+        g = _allsum(block.conj().T @ block, group).cpu().numpy()
+        lam, u = np.linalg.eigh(0.5 * (g + g.conj().T))
+        keep = lam > 1e-20 * max(lam.max(initial=0.0), 1e-300)
+        block = block @ torch.as_tensor(u[:, keep]
+                                        / np.sqrt(lam[keep])).to(block)
+    return block
+
+
+def _orth_expand_block(qi: torch.Tensor, block: torch.Tensor, rng,
+                       group=None) -> torch.Tensor:
     """Orthonormalise ``block`` [dim, m] against orthonormal ``qi``
-    [dim, k] (CGS2 + QR).  Near-dependent columns are replaced by random
-    directions (complex ones for a complex basis) orthogonalised the same
-    way."""
+    [dim, k] (CGS2 + QR; over sharded rows, CGS2 + :func:`_gram_orthonormal`).
+    Near-dependent columns are replaced by random directions (complex ones
+    for a complex basis) orthogonalised the same way."""
     qh = qi.conj().T
     for _ in range(2):
-        block = block - qi @ (qh @ block)
+        block = block - qi @ _allsum(qh @ block, group)
+    if group is not None:
+        qb = _gram_orthonormal(block, group)
+        short = block.shape[1] - qb.shape[1]
+        if short:
+            v = rng.normal(size=(qi.shape[0], short))
+            if qb.dtype.is_complex:
+                v = v + 1j * rng.normal(size=v.shape)
+            extra = torch.as_tensor(v).to(qb)
+            both = torch.cat([qi, qb], dim=1)
+            for _ in range(2):
+                extra = extra - both @ _allsum(both.conj().T @ extra, group)
+            qb = torch.cat([qb, _gram_orthonormal(extra, group)], dim=1)
+        return qb
     qb, rr = torch.linalg.qr(block)
     d = torch.diagonal(rr).abs().cpu().numpy()
     scale = d.max() if d.size else 0.0
@@ -465,7 +562,7 @@ def _orth_expand_block(qi: torch.Tensor, block: torch.Tensor, rng
 
 
 def rayleigh_refine_real(matvec64, vecs: torch.Tensor, neigen: int,
-                         rtol=None, max_expand: int = 2):
+                         rtol=None, max_expand: int = 2, group=None):
     """Rayleigh-Ritz on the span of the device rows ``vecs`` [k, dim],
     expanded with the orthonormalised residual block of the wanted pairs
     until their residuals meet ``rtol*max(|theta|,1)`` or ``max_expand``
@@ -474,10 +571,15 @@ def rayleigh_refine_real(matvec64, vecs: torch.Tensor, neigen: int,
     ``rayleigh_refine_split_device``).  The basis grows to at most 96
     columns, and to what a quarter of the device memory holds in three
     f64 blocks (q, H·q and a copy) of that width: at Ns=16 a few columns.
+    ``group``: the rows of ``vecs`` are spread over its ranks (a sharded
+    operator's), and every Gram block and norm is summed over it.
     Returns host theta [neigen], device vectors [neigen, dim], host resid
     [neigen]."""
     dim = vecs.shape[1]
-    q, _ = torch.linalg.qr(vecs.to(_hi(vecs.dtype)).T)
+    if group is None:
+        q, _ = torch.linalg.qr(vecs.to(_hi(vecs.dtype)).T)
+    else:
+        q = _gram_orthonormal(vecs.to(_hi(vecs.dtype)).T, group)
     k_cap = max(q.shape[1], min(96, dim, budget_bytes(vecs.device, 0.25)
                                 // (3 * _itemsize(q.dtype) * dim)))
 
@@ -487,22 +589,23 @@ def rayleigh_refine_real(matvec64, vecs: torch.Tensor, neigen: int,
     w = hcols(q)
     theta = new_vecs = resid = None
     for it in range(max_expand + 1):
-        hk = (q.conj().T @ w).cpu().numpy()
+        hk = _allsum(q.conj().T @ w, group).cpu().numpy()
         hk = 0.5 * (hk + hk.conj().T)
         theta, s = np.linalg.eigh(hk)
         s_d = torch.as_tensor(s).to(q)
         new_vecs = q @ s_d
         wmix = w @ s_d
         th_d = torch.as_tensor(theta).to(q)
-        resid = torch.linalg.vector_norm(wmix - new_vecs * th_d[None, :],
-                                         dim=0).cpu().numpy()
+        resid = _norms(wmix - new_vecs * th_d[None, :], 0,
+                       group).cpu().numpy()
         done = (rtol is None or np.all(
             resid[:neigen] <= rtol * np.maximum(np.abs(theta[:neigen]),
                                                 1.0)))
         if done or it == max_expand or q.shape[1] + neigen > k_cap:
             break
         r = wmix[:, :neigen] - new_vecs[:, :neigen] * th_d[None, :neigen]
-        qn = _orth_expand_block(q, r, np.random.default_rng(8527 + it))
+        qn = _orth_expand_block(q, r, np.random.default_rng(8527 + it),
+                                group)
         q = torch.cat([q, qn], dim=1)
         w = torch.cat([w, hcols(qn)], dim=1)
     return theta[:neigen], new_vecs.T[:neigen], resid[:neigen]
@@ -627,17 +730,21 @@ def _mixed(eigh, apply32, apply64, dim, neigen, ncv, maxiter, tol, v0,
     rtol = _mixed_vec_rtol(vec_rtol)
     theta, vecs, resid = rayleigh_refine_real(
         lambda x: apply64(op64, x), res32.eigenvectors, neigen,
-        rtol=rtol, max_expand=16)
+        rtol=rtol, max_expand=16, group=_group_of(op64))
     nmv = res32.iterations + len(res32.eigenvectors)
     if np.all(resid <= rtol * np.maximum(np.abs(theta), 1.0)):
         return EighResult(theta, vecs if device_vectors
                           else vecs.cpu().numpy(), nmv, True)
-    # full-f64 polish at the caller's tolerance; ncv shrinks to what an
-    # f64 basis can afford
+    # full-f64 polish at the caller's tolerance, from the refined ground
+    # vector; ncv shrinks to what an f64 basis can afford in 60% of the
+    # card (the restart rotates the basis in place, so the basis and a
+    # matvec's temporaries are the working set: ncv 16 for a complex
+    # Ns=16 sector, where a third of the card left 8, too few to converge
+    # its ground state to the floor)
     global f64_fallbacks
     f64_fallbacks += 1
     ncv_fb = min(ncv, max(neigen + 2, int(budget_bytes(
-        _device_of(op64), 0.33) / (dim * _itemsize(hi))) - 1))
+        _device_of(op64), 0.6) / (dim * _itemsize(hi))) - 1))
     v0_64 = vecs[0].cpu().numpy()
     del vecs
     res64 = eigh(apply64, dim, neigen=neigen, ncv=ncv_fb, maxiter=maxiter,

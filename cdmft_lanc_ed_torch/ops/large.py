@@ -9,7 +9,8 @@ the natural [DimDw, DimUp] layout and H_up·Xᵀ in the transposed one.
 
 The SpMM is the hand-written CUDA kernel ``csrc/blk_spmm.cu`` (the port
 of the TPU kernel ``_pallas_blk_spmm_call``), for f32, bf16 tiles with f32
-accumulation, f64, complex64 and complex128: :func:`blk_spmm` launches it
+accumulation, f64, complex64, complex128 and bf16 complex tiles with
+complex64 accumulation: :func:`blk_spmm` launches it
 for every CUDA tensor and takes its plain version, :func:`blk_spmm_ref`,
 only for tensors on the CPU.  The kernel does not walk the tiles (0.5%
 full at Ns=16) but a compact form of the factor built once per
@@ -18,7 +19,9 @@ operator, a CSR of its nonzeros (:func:`blk_structure`,
 outside the kernel, as in the JAX package.
 
 A complex Hamiltonian takes :class:`LargePairOp`, whose tiles are complex
-tensors (the JAX package's re/im/re+im planes); a real one takes
+tensors (the JAX package's re/im/re+im planes); torch has no complex bf16
+type, so its bf16 tiles (the coarse Krylov stage) are a real bf16 tensor
+[T, B, B, 2] with a trailing (re, im) axis; a real one takes
 :class:`LargeRealOp`, which also applies to complex vectors (both planes
 run as one real product).  The padding contract (+1e6 decoupled diagonal
 modes) and the (dev, dim_p, embed, extract) kit interface are those of
@@ -52,6 +55,18 @@ _entries = {}   # the C entry points, typed once at first use
 _ENTRY = {torch.float32: "blk_spmm_f32", torch.bfloat16: "blk_spmm_bf16",
           torch.float64: "blk_spmm_f64", torch.complex64: "blk_spmm_c64",
           torch.complex128: "blk_spmm_c128"}
+_ENTRY_BF16C = "blk_spmm_bf16c"
+
+
+def is_bf16c(tiles: torch.Tensor) -> bool:
+    """True for bf16 complex tiles: a real bf16 tensor [T, B, B, 2] whose
+    trailing axis holds (re, im)."""
+    return tiles.dtype == torch.bfloat16 and tiles.dim() == 4
+
+
+def complex_tiles(tiles: torch.Tensor) -> bool:
+    """True for the tiles of a complex factor (complex or bf16 complex)."""
+    return tiles.is_complex() or is_bf16c(tiles)
 
 
 # ---------------------------------------------------------------------------
@@ -142,7 +157,8 @@ def blk_structure(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
     into ``tiles``, so operators of any type with the same tile layout
     share one structure (:func:`blk_compact`).  Derived on the tiles'
     device."""
-    t, r, k = (tiles != 0).nonzero(as_tuple=True)
+    nonzero = (tiles != 0).any(-1) if is_bf16c(tiles) else tiles != 0
+    t, r, k = nonzero.nonzero(as_tuple=True)
     rows = rb.long()[t] * B + r
     cols = cb.long()[t] * B + k
     order = torch.argsort(rows * (cb.long().max() + 1) * B + cols) \
@@ -158,8 +174,10 @@ def blk_structure(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
 def blk_compact(tiles: torch.Tensor, structure) -> tuple:
     """The kernel's compact form of ``tiles`` on ``structure`` (of
     :func:`blk_structure`): (row_ptr, cols, vals), vals [nnz] in the tile
-    type."""
+    type ([nnz, 2] (re, im) pairs for bf16 complex tiles)."""
     row_ptr, cols, pos = structure
+    if is_bf16c(tiles):
+        return row_ptr, cols, tiles.reshape(-1, 2)[pos]
     return row_ptr, cols, tiles.reshape(-1)[pos]
 
 
@@ -175,7 +193,14 @@ def blk_spmm_ref(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
     gather the [B, c] row block of x under each tile, one batched product
     over the tiles, and a sum of the products into their row blocks;
     chunked over the columns of x.  bf16 tiles are upcast to the type of
-    x (f32 for bf16 x)."""
+    x (f32 for bf16 x).  bf16 complex tiles take complex64 x, which is
+    rounded to bf16 pairs as the kernel rounds it: complex products of
+    bf16 inputs, accumulated in complex64."""
+    if is_bf16c(tiles):
+        tiles = torch.view_as_complex(tiles.float())
+        x = torch.view_as_complex(
+            torch.view_as_real(x.resolve_conj().to(torch.complex64))
+            .to(torch.bfloat16).float())
     acc = x.dtype if x.dtype != torch.bfloat16 else torch.float32
     if tiles.dtype != acc:
         tiles = tiles.to(acc)
@@ -209,24 +234,28 @@ def blk_spmm(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
     """y [nb_out·B, n] = Σ_t tiles[t] @ x[cb[t]·B : +B, :], added into row
     block rb[t].
 
-    tiles [T, B, B] f32, bf16, f64, complex64 or complex128; x [m_src, n]
-    of the tile type (f32 for bf16 tiles, cast to bf16 for the kernel,
-    whose output is f32).  The kernel runs on ``index``, the compact form
+    tiles [T, B, B] f32, bf16, f64, complex64 or complex128, or
+    [T, B, B, 2] bf16 complex; x [m_src, n] of the tile type (f32 for bf16
+    tiles, cast to bf16 for the kernel, whose output is f32; complex64 for
+    bf16 complex tiles, cast to bf16 pairs, complex64 output).  The kernel
+    runs on ``index``, the compact form
     (row_ptr, cols, vals) of :func:`blk_compact`, derived from the tiles
     when not given (it needs no first-of-band flags: each row is written
     once, a row without nonzeros as zeros).  A CPU tensor takes
     :func:`blk_spmm_ref`; a CUDA tensor launches the kernel or raises."""
     global launches
     fn = "blk_spmm"
-    bf16 = tiles.dtype == torch.bfloat16
-    want = torch.float32 if bf16 else tiles.dtype
-    if tiles.dim() != 3 or tuple(tiles.shape[1:]) != (B, B):
-        raise ValueError(f"{fn}: tiles must be [T, {B}, {B}], got "
-                         f"{tuple(tiles.shape)}")
+    cbf16 = is_bf16c(tiles)
+    bf16 = tiles.dtype == torch.bfloat16 and not cbf16
+    want = torch.complex64 if cbf16 else \
+        torch.float32 if bf16 else tiles.dtype
+    if tuple(tiles.shape[1:]) != ((B, B, 2) if cbf16 else (B, B)):
+        raise ValueError(f"{fn}: tiles must be [T, {B}, {B}] (bf16 complex: "
+                         f"[T, {B}, {B}, 2]), got {tuple(tiles.shape)}")
     if x.dim() != 2 or x.shape[0] % B:
         raise ValueError(f"{fn}: x must be [m, n] with m a multiple of "
                          f"{B}, got {tuple(x.shape)}")
-    if x.dtype not in (want, tiles.dtype):
+    if x.dtype not in (want, tiles.dtype) or cbf16 and x.dtype != want:
         raise TypeError(f"{fn}: x is {x.dtype}, {want} expected for "
                         f"{tiles.dtype} tiles")
     for name, t in (("rb", rb), ("cb", cb), ("tiles", tiles)):
@@ -239,6 +268,8 @@ def blk_spmm(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
         raise ValueError(f"{fn}: unsupported device {x.device}")
     if bf16:
         x = x.to(torch.bfloat16)
+    elif cbf16:
+        x = torch.view_as_real(x.resolve_conj()).to(torch.bfloat16)
     if not (x.is_contiguous() and tiles.is_contiguous()):
         raise ValueError(f"{fn}: x and tiles must be contiguous")
     if x.is_conj() or tiles.is_conj():
@@ -253,17 +284,18 @@ def blk_spmm(rb: torch.Tensor, cb: torch.Tensor, tiles: torch.Tensor,
     if row_ptr.numel() != nb_out * B + 1:
         raise ValueError(f"{fn}: row_ptr has {row_ptr.numel()} entries, "
                          f"{nb_out * B + 1} expected")
-    if vals.dtype != tiles.dtype or vals.numel() != cols.numel() \
+    per = 2 if cbf16 else 1
+    if vals.dtype != tiles.dtype or vals.numel() != per * cols.numel() \
             or not vals.is_contiguous() or vals.is_conj():
-        raise ValueError(f"{fn}: vals must be {cols.numel()} contiguous "
-                         f"{tiles.dtype} values")
+        raise ValueError(f"{fn}: vals must be {per * cols.numel()} "
+                         f"contiguous {tiles.dtype} values")
     for name, t in (("row_ptr", row_ptr), ("cols", cols), ("vals", vals)):
         if t.device != x.device:
             raise ValueError(f"{fn}: {name} on {t.device}, x on "
                              f"{x.device}")
     y = torch.empty(nb_out * B, x.shape[1], device=x.device,
-                    dtype=torch.float32 if bf16 else x.dtype)
-    entry = _ENTRY[tiles.dtype]
+                    dtype=want if cbf16 or bf16 else x.dtype)
+    entry = _ENTRY_BF16C if cbf16 else _ENTRY[tiles.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _kernel(entry)(
@@ -309,7 +341,8 @@ class LargeRealOp:
 class LargePairOp(LargeRealOp):
     """Complex sector Hamiltonian: the same fields with complex tiles and
     complex ``nd_amp`` (the JAX package's re/im/re+im tile planes as one
-    complex tensor)."""
+    complex tensor; bf16 tiles as [T, B, B, 2] real bf16 (re, im)
+    pairs)."""
 
 
 def _nd_maps(op: SectorOperator, dup: int, ddp: int):
@@ -345,8 +378,9 @@ def _padded_diag(op: SectorOperator, ddp: int, dup: int, dtype,
 
 
 def _build(cls, op: SectorOperator, real: bool, dtype, reuse, device):
-    """Device operator ``cls`` of ``op``: tiles in ``dtype`` (bf16 tiles
-    keep an f32 diagonal and amplitudes); ``reuse`` shares the diagonal,
+    """Device operator ``cls`` of ``op``: tiles in ``dtype`` (bf16 tiles,
+    real or complex, keep an f32 diagonal and f32 or complex64
+    amplitudes); ``reuse`` shares the diagonal,
     the block indices, the nonzero structures and the nd arrays of a
     same-shape operator (at Ns=16 the padded f64 diagonal alone is
     1.34 GB).  ``device=None`` is the card."""
@@ -359,6 +393,10 @@ def _build(cls, op: SectorOperator, real: bool, dtype, reuse, device):
     dup, ddp = fu.nb * B, fd.nb * B
 
     def tiles(f):
+        if not real and dtype == torch.bfloat16:
+            # complex128 host tiles rounded once, straight to bf16 pairs
+            return torch.view_as_real(torch.as_tensor(f.tiles)).to(
+                device=device, dtype=torch.bfloat16).contiguous()
         return torch.as_tensor(f.tiles).to(device=device, dtype=tdt)
 
     dw_tiles, up_tiles = tiles(fd), tiles(fu)
@@ -403,9 +441,11 @@ def to_device_large_pair(op: SectorOperator, dtype=torch.float32,
                          reuse: LargePairOp = None,
                          device=None) -> LargePairOp:
     """Complex tiles: complex64 for ``dtype`` float32/complex64,
-    complex128 for float64/complex128 (there are no complex bf16 tiles)."""
+    complex128 for float64/complex128, bf16 (re, im) pairs [T, B, B, 2]
+    for bfloat16 (the coarse Krylov stage; the diagonal stays f32 and the
+    Jx/Jp amplitudes complex64, as ``to_device_large_real`` keeps them)."""
     if dtype not in (torch.float32, torch.complex64, torch.float64,
-                     torch.complex128):
+                     torch.complex128, torch.bfloat16):
         raise TypeError(f"to_device_large_pair: no {dtype} complex tiles")
     return _build(LargePairOp, op, False, dtype, reuse, device)
 
@@ -417,7 +457,7 @@ def to_device_large_pair(op: SectorOperator, dtype=torch.float32,
 def _side(rb, cb, tiles, idx, x2: torch.Tensor, nb_out: int):
     """One factor on rows: real tiles apply to a complex x2 as one real
     product over its (re, im) columns."""
-    if x2.is_complex() and not tiles.is_complex():
+    if x2.is_complex() and not complex_tiles(tiles):
         n = x2.shape[1]
         xr = torch.view_as_real(x2.resolve_conj()).reshape(x2.shape[0],
                                                            2 * n)

@@ -17,13 +17,15 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  inputs rounded to TF32 (a control: what a TF32 kernel
                  would show).
 3b. large_kernel - the block-sparse SpMM kernel in every instantiation
-                 (f32, bf16, f64, complex64, complex128) against its plain
-                 version: both sides of the Ns=16 flagship's (8,8) factors
-                 at n = 12,928, one GF-width call (4 injections folded
-                 into n), one side of a complex Ns=16 factor (the BHZ
-                 chain with 3 general baths) and a tiny factor with an
-                 empty band and a ragged n; timed beside its bound, its
-                 plain version and cuSPARSE (torch.sparse.mm).  Every
+                 (f32, bf16, f64, complex64, complex128, bf16 complex)
+                 against its plain version: both sides of the Ns=16
+                 flagship's (8,8) factors at n = 12,928, one GF-width call
+                 (4 injections folded into n), one side of a complex Ns=16
+                 factor (the BHZ chain with 3 general baths; bf16 complex
+                 also within the bf16 bound of the complex64 product) and
+                 a tiny factor with an empty band and a ragged n; timed
+                 beside its bound, its plain version and cuSPARSE
+                 (torch.sparse.mm; none for bf16 types).  Every
                  timed record of 2-3b carries library_ratio = ms /
                  library_ms; the block-sparse ones also the bound with
                  the factor read in the kernel's compact form
@@ -41,7 +43,7 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  version (the bounds of 2) and timed beside cuBLAS at every
                  (B, D, U) of the loop's launch mix.
 5b. doped_loop - the same configuration hole-doped: nread=3.6 (0.9 per
-                 site), the mu search from mu=0 with ndelta=0.1, 3
+                 site), the mu search from mu=0 with ndelta=0.1, 2
                  iterations, the impSigma/impG/impG0 files printed: mu
                  below 0, the density at the last iteration nearer 3.6
                  than at the first, the four site densities equal to
@@ -78,6 +80,14 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  Mh 0.5 (|C_up| = 1, C_dw = -C_up, Z2 = 1) and Mh 2.0 (all
                  0) on the card, and the Sigma- and G-scheme periodizations
                  of a seeded Sigma on the card against the CPU to 1e-12.
+6c. mesh_solve - pairs of gloo ranks on the one card (spawned here,
+                 the three solves at once): the metric-2 solve on a (1, 2)
+                 mesh (dw-sharded, the sweep cut to (6, 6)) and on a
+                 (2, 1) mesh (sector-parallel; the sweep cut to 13
+                 sectors), the BHZ chain's mixed solve on (2, 1),
+                 each held to the loop's first solve or bhz_solve's (egs
+                 and densities 1e-7, Sigma 2e-5 relative); bytes
+                 exchanged per H·v, seconds.
 7. bhz_loop    - the same configuration through run_dmft_loop for
                  ``--bhz-loops`` iterations (default 1; "mixed", wmixing
                  0.5): finite, time reversal kept, complex kernel
@@ -103,13 +113,25 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  and the A(kx, w) map, finite and equal to the same
                  computation on the CPU to 1e-10 at 4 kx.
 7d. large_solve - one EDSolver.solve of the Ns=16 flagship (2x2 plaquette
-                 + 3 replica baths, U=4, mixed, f64 GF chains, lmats 256,
-                 T=0), the sweep cut to the (8,8) sector (dim 1.66e8) by
+                 + 3 replica baths, U=4, mixed, f64 GF chains of 50
+                 steps, lmats 256, T=0), the sweep cut to the (8,8)
+                 sector (dim 1.66e8) by
                  ed_sectors and a sectors_list.restart: E0 within 1e-7 of
                  -16.2728081424, density 1 per site, C4-symmetric G(iw),
                  Im G < 0, finite Sigma, block-sparse launches > 0; the f64
                  residual, stage times, f64 re-solves, matvecs per
                  precision and peak device memory.
+7e. mesh_large - the flagship solve through parallel.sharded_large on a
+                 (1, 1) mesh over NCCL (world size 1: real all-to-alls
+                 over one rank): E0 within 1e-7 of the anchor, G(iw)
+                 within 1e-8 of its largest entry from large_solve's;
+                 seconds, exchange seconds (CUDA events), peak memory.
+7f. large_pair_solve - the BHZ chain with 3 general baths (Ns=16), its
+                 (8,8) sector (dim 1.66e8, complex), a T=0 ground-state
+                 solve in mixed precision with the bf16 complex coarse
+                 stage and without it: E0 within 1e-7, both converged,
+                 residuals under the mixed vector tolerance; matvecs per
+                 precision, seconds, peak memory.
 8. kernels     - one line listing every ported kernel, with its launches
                  on each path that runs it (``launches`` is their sum).
 
@@ -122,6 +144,7 @@ and the device's busy share (exploration, not part of the default run).
 """
 import argparse
 import contextlib
+import dataclasses
 import json
 from collections import Counter
 import subprocess
@@ -337,7 +360,7 @@ def kernel_phase(name, peaks, complex_, shapes, rel_tol, tol_text):
         args = problem(b, d, u)
         diag, hdw, hupT, x = args
         ms = time_ms(lambda: kernel(*args))
-        plain_ms = time_ms(lambda: plain(*args))
+        plain_ms = time_ms(lambda: plain(*args), reps=5, warmup=1)
         library_ms = time_ms(lambda: torch.addcmul(
             torch.matmul(hdw, x), diag, x) + torch.matmul(x, hupT))
         bound, by = fused_bound_ms(b, d, u, peaks, complex_)
@@ -566,6 +589,16 @@ def phase_loop(workdir, loops, peaks, profile=False):
             egs_hist.append(solver.egs)
             mark[0] = now
 
+    # the first solve (at the initial bath) is mesh_solve's reference
+    first = {}
+    solve = solver.solve
+
+    def solve_and_keep_first(*a, **kw):
+        solve(*a, **kw)
+        if not first:
+            first.update(solve_summary(solver))
+
+    solver.solve = solve_and_keep_first
     fused.launches = fused.pair_launches = 0
     fused.real_shapes.clear()
     lanczos.f64_fallbacks = 0
@@ -610,14 +643,15 @@ def phase_loop(workdir, loops, peaks, profile=False):
           "f64_fallbacks": fallbacks, "checks": checks})
     if not all(checks.values()):
         fail("loop", f"checks failed: {checks}")
-    return launches
+    return launches, first
 
 
 # The hole-doped plaquette: the metric-2 configuration at a density of
 # 0.9 per site (10% hole doping, the cuprate CDMFT setting), the mu search
-# starting from mu = 0 with the default step ndelta = 0.1; 3 iterations.
+# starting from mu = 0 with the default step ndelta = 0.1; 2 iterations
+# (a cut of depth for the smoke's time; its checks need two).
 DOPED_NREAD = 3.6
-DOPED_LOOPS = 3
+DOPED_LOOPS = 2
 
 
 def phase_doped_loop(workdir, peaks, loops=DOPED_LOOPS):
@@ -728,10 +762,12 @@ BHZ_MODEL = dict(mh=1.0, ts=0.25, lam=0.3)
 TR_TOL = 5e-5
 
 
-def bhz_setup(workdir, prec, verbose=0, nbath=BHZ_CFG["nbath"]):
+def bhz_setup(workdir, prec, verbose=0, nbath=BHZ_CFG["nbath"], **kw):
+    """(solver, bath, hk, hloc) of the BHZ chain; ``kw`` overrides
+    config fields."""
     from cdmft_lanc_ed_torch import EDConfig, EDSolver
     from cdmft_lanc_ed_torch.models.bhz import bhz_bath_basis, bhz_chain_hk
-    cfg = EDConfig(**dict(BHZ_CFG, nbath=nbath), ed_precision=prec,
+    cfg = EDConfig(**dict(BHZ_CFG, nbath=nbath, **kw), ed_precision=prec,
                    ed_verbose=verbose, work_dir=workdir)
     hk, hloc = bhz_chain_hk(2, 1, 32, **BHZ_MODEL)
     solver = EDSolver(cfg)
@@ -1193,8 +1229,13 @@ def phase_realpair_gf(workdir, peaks):
 # quotient on the TPU (LARGE_BENCH_r05; its two runs agree to 3e-9).
 E0_NS16 = -16.2728081424
 E0_NS16_TOL = 1e-7
+# GF chains of 50 steps (the default is 200): a cut of depth, so that
+# large_solve and mesh_large, two GF builds of this sector, fit the
+# smoke's time.  At 20 steps G(iw) of two equally converged
+# solves differed by 2.4e-6 of its largest entry (2.3e-13 at 100 steps)
+# and mesh_large's 1e-8 check failed on the card.
 NS16_CFG = dict(nlat=4, norb=1, nspin=1, nbath=3, uloc=[4.0], lmats=256,
-                lreal=32)
+                lreal=32, lanc_ngfiter=50)
 NS16_SECTOR = (8, 8)          # half filling: dim C(16,8)^2 = 1.66e8
 # f64 GF chains: f32 chains ("single") break the C4 symmetry of G(iw)
 # beyond 1e-5 (measured on the CPU at the same cut: 8.4e-7 at Ns=8,
@@ -1206,12 +1247,16 @@ GF_PROFILE_STEPS = 8          # chain steps traced by --profile
 PEAK_BF16, PEAK_F64 = 989e12, 34e12
 # max|kernel - plain| <= tol * max|plain| per instantiation.  f32 and
 # complex64: the fused kernels' bound, and a tenth of the TF32 control.
-# bf16: the plain version runs in f32 on the same bf16 inputs, whose
-# products are exact in f32, so only the order of the sums differs.
+# bf16 and bf16 complex: the plain version runs in f32 (complex64) on the
+# same bf16 inputs, whose products are exact in f32, so only the order of
+# the sums differs.  bf16 complex is also held to the complex64 product of
+# the unrounded inputs within the bf16 bound BF16C_REL·(|A|·|x|)
+# elementwise (|z| = |re z| + |im z|; four bf16 unit roundoffs 2^-9).
 BLK_TOL = {"f32": 2e-4, "bf16": 1e-5, "f64": 1e-12, "c64": 2e-4,
-           "c128": 1e-12}
+           "c128": 1e-12, "bf16c": 1e-5}
 BLK_TYPES = {"f32": "float32", "bf16": "bfloat16", "f64": "float64",
-             "c64": "complex64", "c128": "complex128"}
+             "c64": "complex64", "c128": "complex128", "bf16c": "bfloat16"}
+BF16C_REL = 2.0 ** -7
 
 
 def flagship_solver(workdir, **kw):
@@ -1240,7 +1285,7 @@ def blk_bound(ops, nbytes, kind, peaks):
     """(bound ms, bound_by): ``ops`` real operations over the peak of
     instantiation ``kind``, ``nbytes`` over HBM bandwidth."""
     peak = {"f32": peaks[0], "c64": peaks[0], "bf16": PEAK_BF16,
-            "f64": PEAK_F64, "c128": PEAK_F64}[kind]
+            "bf16c": PEAK_BF16, "f64": PEAK_F64, "c128": PEAK_F64}[kind]
     t_ops, t_bytes = ops / peak, nbytes / peaks[1]
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -1248,9 +1293,9 @@ def blk_bound(ops, nbytes, kind, peaks):
 
 def blk_io_bytes(x, nb_out, kind):
     """x read once and y written once (bf16 x and f32 y for bf16
-    tiles)."""
-    x_item = 2 if kind == "bf16" else x.element_size()
-    y_item = 4 if kind == "bf16" else x.element_size()
+    tiles, bf16 pairs and complex64 y for bf16 complex tiles)."""
+    x_item = {"bf16": 2, "bf16c": 4}.get(kind, x.element_size())
+    y_item = {"bf16": 4, "bf16c": 8}.get(kind, x.element_size())
     return x_item * x.numel() + y_item * nb_out * 128 * x.shape[1]
 
 
@@ -1261,7 +1306,7 @@ def blk_cost(tiles, x, nb_out, nnz, kind, peaks):
     each moved once (bf16 x and f32 y for bf16 tiles) over HBM
     bandwidth."""
     n = x.shape[1]
-    per = 8.0 if tiles.is_complex() else 2.0
+    per = 8.0 if tiles.is_complex() or kind == "bf16c" else 2.0
     ops = per * nnz * n
     nbytes = (tiles.element_size() * tiles.numel()
               + blk_io_bytes(x, nb_out, kind))
@@ -1275,7 +1320,8 @@ def blk_compact_cost(index, x, nb_out, kind, peaks):
     dense tiles: x and y each moved once, the operations of
     :func:`blk_cost` on the stored nonzeros."""
     row_ptr, cols, vals = index
-    ops = (8.0 if vals.is_complex() else 2.0) * vals.numel() * x.shape[1]
+    ops = (8.0 if vals.is_complex() or kind == "bf16c" else 2.0) \
+        * cols.numel() * x.shape[1]
     nbytes = (4 * (row_ptr.numel() + cols.numel())
               + vals.element_size() * vals.numel()
               + blk_io_bytes(x, nb_out, kind))
@@ -1291,9 +1337,13 @@ def blk_case(name, kind, f, x_np, peaks, time_it):
     from cdmft_lanc_ed_torch.ops import large
     dev = torch.device("cuda")
     dt = getattr(torch, BLK_TYPES[kind])
-    tiles = torch.as_tensor(f.tiles).to(dev, dt)
-    x = torch.as_tensor(x_np).to(dev, torch.float32 if kind == "bf16"
-                                 else dt)
+    if kind == "bf16c":
+        tiles = torch.view_as_real(torch.as_tensor(f.tiles)).to(dev, dt)
+    else:
+        tiles = torch.as_tensor(f.tiles).to(dev, dt)
+    x = torch.as_tensor(x_np).to(dev, {"bf16": torch.float32,
+                                       "bf16c": torch.complex64}.get(kind,
+                                                                     dt))
     rb, cb = (torch.as_tensor(a).to(dev) for a in (f.row_blk, f.col_blk))
     nb = f.nb
     idx = large.blk_compact(tiles, large.blk_structure(rb, cb, tiles, nb))
@@ -1303,6 +1353,7 @@ def blk_case(name, kind, f, x_np, peaks, time_it):
         xb = x.to(torch.bfloat16)
         plain_args = (rb, cb, tiles.float(), xb.float(), nb)
     else:
+        # bf16 complex: the plain version rounds x to bf16 pairs itself
         plain_args = (rb, cb, tiles, x, nb)
     ref = large.blk_spmm_ref(*plain_args)
     err = float((y - ref).abs().max())
@@ -1313,6 +1364,20 @@ def blk_case(name, kind, f, x_np, peaks, time_it):
            "nnz": int(f.nnz), "max_abs_err": err, "max_abs_ref": scale,
            "tolerance": BLK_TOL[kind]}
     ok = bool(torch.isfinite(y).all()) and err <= BLK_TOL[kind] * scale
+    if kind == "bf16c":
+        # within the bf16 bound of the complex64 product of the unrounded
+        # inputs
+        t64 = torch.as_tensor(f.tiles).to(dev, torch.complex64)
+        y64 = large.blk_spmm_ref(rb, cb, t64, x, nb)
+        bound = BF16C_REL * large.blk_spmm_ref(
+            rb, cb, (t64.real.abs() + t64.imag.abs()),
+            (x.real.abs() + x.imag.abs()), nb)
+        gap = (y - y64).abs()
+        rec["bf16_bound_ratio"] = float((gap / bound.clamp_min(1e-30))
+                                        .max())
+        rec["err_vs_complex64"] = float(gap.max())
+        ok = ok and bool((gap <= bound + 1e-6 * scale).all())
+        del t64, y64, bound, gap
     if kind in ("f32", "c64"):
         # control: the plain version on inputs rounded to TF32
         tf = large.blk_spmm_ref(rb, cb, tf32_round(tiles), tf32_round(x),
@@ -1333,7 +1398,8 @@ def blk_case(name, kind, f, x_np, peaks, time_it):
         rec.update(
             ms=time_ms(lambda: large.blk_spmm(rb, cb, tiles, xk, nb,
                                               index=idx)),
-            plain_ms=time_ms(lambda: large.blk_spmm_ref(*plain_args)),
+            plain_ms=time_ms(lambda: large.blk_spmm_ref(*plain_args),
+                             reps=5, warmup=1),
             bound_ms=bound, bound_by=by, operations=ops, bytes=nbytes,
             padded_tile_flops=padded)
         rec["library_ms"] = library_ms(f, kind, xk, dev)
@@ -1349,20 +1415,26 @@ def blk_case(name, kind, f, x_np, peaks, time_it):
 def library_ms(f, kind, x, dev):
     """Time of one torch.sparse.mm (cuSPARSE SpMM) of the same factor as
     a CSR tensor on the same operand, or None where cuSPARSE has no such
-    product (bf16)."""
+    product (bf16, real or complex)."""
     import torch
-    if kind == "bf16":
+    if kind in ("bf16", "bf16c"):
         return None
-    b = 128
-    tt, rr, cc = np.nonzero(f.tiles)
-    rows = f.row_blk[tt].astype(np.int64) * b + rr
-    cols = f.col_blk[tt].astype(np.int64) * b + cc
-    coo = torch.sparse_coo_tensor(
-        torch.as_tensor(np.stack([rows, cols])),
-        torch.as_tensor(f.tiles[tt, rr, cc]),
-        (f.nb * b, x.shape[0])).coalesce()
-    csr = coo.to_sparse_csr().to(dev, x.dtype)
+    key = (id(f), x.shape[0])
+    if key not in _CSR:
+        b = 128
+        tt, rr, cc = np.nonzero(f.tiles)
+        rows = f.row_blk[tt].astype(np.int64) * b + rr
+        cols = f.col_blk[tt].astype(np.int64) * b + cc
+        _CSR[key] = (f, torch.sparse_coo_tensor(
+            torch.as_tensor(np.stack([rows, cols])),
+            torch.as_tensor(f.tiles[tt, rr, cc]),
+            (f.nb * b, x.shape[0])).coalesce().to_sparse_csr())
+    csr = _CSR[key][1].to(dev, x.dtype)
     return time_ms(lambda: torch.sparse.mm(csr, x))
+
+
+# host CSR of each factor timed by library_ms (built once per factor)
+_CSR = {}
 
 
 def phase_large_kernel(peaks):
@@ -1399,7 +1471,7 @@ def phase_large_kernel(peaks):
     nc = large.block_factor_of(bop.h_dw, real=False).nb * 128
     xc = rng.normal(size=(fc.nb * 128, nc)) \
         + 1j * rng.normal(size=(fc.nb * 128, nc))
-    for kind in ("c64", "c128"):
+    for kind in ("c64", "c128", "bf16c"):
         records.append(blk_case("bhz16_up", kind, fc, xc, peaks, True))
     del xc
     # tiny: rows only in the first of two output bands, ragged n
@@ -1412,11 +1484,12 @@ def phase_large_kernel(peaks):
         rng.normal(size=k), True, np.float64)
     xt = rng.normal(size=(ft.nb * 128, 77))
     for kind in BLK_TOL:
-        cplx = kind in ("c64", "c128")
+        cplx = kind in ("c64", "c128", "bf16c")
         records.append(blk_case("tiny_empty_band", kind,
                                 ft if cplx else ftr,
                                 xt + 1j * xt[::-1] if cplx else xt,
                                 peaks, False))
+    _CSR.clear()
     ok = all(r["ok"] for r in records)
     emit({"phase": "large_kernel", "seconds": time.time() - t0,
           "tolerance": "max|kernel - plain| <= tol * max|plain| (tol per "
@@ -1426,7 +1499,7 @@ def phase_large_kernel(peaks):
         fail("large_kernel", "a block-sparse kernel disagrees with its "
                              "plain version")
     return next(r for r in records if r["case"] == "ns16_dw"
-                and r["type"] == "f32")
+                and r["type"] == "f32"), (bop, solver.cfg)
 
 
 def profile_gf_steps(dev64, v0, steps=GF_PROFILE_STEPS, warmup=2):
@@ -1556,7 +1629,364 @@ def phase_large_solve(workdir, profile=False):
           "checks": checks})
     if not all(checks.values()):
         fail("large_solve", f"checks failed: {checks}")
+    return launches, gm
+
+
+def phase_large_pair_solve(op, cfg):
+    """The complex coarse stage at full width: the BHZ chain with 3
+    general baths (Ns=16), its (8,8) sector ``op`` (dim 1.66e8, complex;
+    large_kernel's), one mixed ground-state diagonalization with the bf16
+    complex coarse stage (the solver's own ``diag._solve_large``) and one
+    without it (the same solve with ``op16`` left out): E0 of the two
+    within 1e-7, both converged, each returned vector's complex128
+    residual under the mixed vector tolerance (1e-10 relative); matvecs
+    per precision, launches by type, f64 re-solves, seconds and peak
+    memory of each run.  One state per sector (``lanc_nstates_sector=1``,
+    ncv 20 with ``lanc_ncv_factor=20``): the second level of this sector
+    lies in a cluster split by ~1e-4, and no Krylov setting tried on the
+    card (ncv 8-20, warm or cold starts) brought its residual below 4e-4,
+    so the two-state default never reports convergence here."""
+    import torch
+    from cdmft_lanc_ed_torch import diag
+    from cdmft_lanc_ed_torch.ops import large, lanczos
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cfg, lanc_nstates_sector=1,
+                              lanc_ncv_factor=20).validate()
+    dim = op.dim
+    # diag.diagonalize_impurity's plan of the sector
+    neigen = cfg.lanc_nstates_sector
+    nblock = min(dim, cfg.lanc_ncv_factor * neigen + cfg.lanc_ncv_add)
+    nitermax = min(dim, cfg.lanc_niter)
+    rtol = lanczos._mixed_vec_rtol(cfg.ed_mixed_vec_tol)
+
+    def without_coarse():
+        # diag._solve_large's complex mixed branch with op16 left out
+        rng = np.random.default_rng(8527)
+        dev32, _, dim_p, embed, extract = large.build_pair_padded_large(
+            op, dtype=torch.float32, device=dev)
+        res = lanczos.lanczos_eigh_mixed(
+            large.apply_large_real_flat, large.apply_large_real_flat,
+            dim_p, v0=embed(rng.normal(size=dim)
+                            + 1j * rng.normal(size=dim)),
+            op32=dev32, op64=lambda: large.build_pair_padded_large(
+                op, dtype=torch.float64, device=dev)[0],
+            vec_rtol=cfg.ed_mixed_vec_tol, neigen=neigen, ncv=nblock,
+            maxiter=nitermax * nblock, tol=cfg.lanc_tolerance,
+            device_vectors=True)
+        return lanczos.EighResult(res.eigenvalues,
+                                  extract(res.eigenvectors),
+                                  res.iterations, res.converged)
+
+    runs, vecs = {}, {}
+    for name in ("coarse", "no_coarse"):
+        large.launches = 0
+        large.launches_by.clear()
+        lanczos.f64_fallbacks = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = diag._solve_large(cfg, op, dim, neigen, nblock, nitermax,
+                                dev) if name == "coarse" \
+            else without_coarse()
+        torch.cuda.synchronize()
+        by = dict(large.launches_by)
+        runs[name] = {
+            "seconds": time.time() - t0, "e0": float(res.eigenvalues[0]),
+            "eigenvalues": [float(e) for e in res.eigenvalues],
+            "converged": bool(res.converged),
+            "iterations": int(res.iterations),
+            "f64_fallbacks": lanczos.f64_fallbacks,
+            "launches_by_type": by,
+            "matvecs_by_type": {k: v / 2 for k, v in by.items()},
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9}
+        vecs[name] = res.eigenvectors[0].clone()
+        del res
+    d128, _, _, embed, extract = large.build_pair_padded_large(
+        op, dtype=torch.float64, device=dev)
+    for name, run in runs.items():
+        x = vecs.pop(name)
+        hx = extract(large.apply_large_real_flat(d128, embed(x)))
+        run["residual"] = float(torch.linalg.vector_norm(hx - run["e0"] * x)
+                                / torch.linalg.vector_norm(x)
+                                / max(abs(run["e0"]), 1.0))
+        del x, hx
+    del d128
+    co, nc = runs["coarse"], runs["no_coarse"]
+    blk = sum(co["launches_by_type"].values())
+
+    checks = {
+        "e0_with_and_without_coarse": abs(co["e0"] - nc["e0"]) <= 1e-7,
+        "both_converged": co["converged"] and nc["converged"],
+        "residuals_under_vec_tol": co["residual"] <= rtol
+        and nc["residual"] <= rtol,
+        "coarse_stage_ran":
+            co["launches_by_type"].get(large._ENTRY_BF16C, 0) > 0
+            and large._ENTRY_BF16C not in nc["launches_by_type"],
+        "finite": all(np.isfinite(r["e0"]) for r in runs.values())}
+    emit({"phase": "large_pair_solve", "model": "BHZ chain, 3 general "
+          "baths (Ns=16)", "sector": list(NS16_SECTOR), "dim": int(dim),
+          "lanc_nstates_sector": neigen, "ncv": nblock,
+          "vec_rtol": rtol,
+          "e0_diff": abs(co["e0"] - nc["e0"]), "runs": runs,
+          "checks": checks})
+    if not all(checks.values()):
+        fail("large_pair_solve", f"checks failed: {checks}")
+    return blk
+
+
+# mesh_solve: two ranks on the one card, over gloo (which stages the CUDA
+# tensors of its collectives through the host; NCCL refuses two ranks on
+# one card).  Each is held to the single-card solve of the same problem at
+# the same bath (the loop's first solve, bhz_solve's mixed solve): egs and
+# densities 1e-7, Sigma 2e-5 relative (the mixed bounds of the JAX suite,
+# tests/test_mixed_baseline_configs.py:41-49).  The three solves run at
+# once, each on its own pair of ranks.  Their sweeps are cut (ed_sectors,
+# a sectors_list.restart, shift 0: the cut of depth large_solve makes): at
+# T=0 only the ground state's sector and its GF targets reach the
+# results, so they are the full sweep's.  The dw-sharded metric-2 solve
+# takes the half-filled (6, 6) sector (dim 853,776, sharded); the (2, 1)
+# solves the 9 sectors (5..7, 5..7), all of dim >= 64·1024 and so solved
+# on the sharded kits of the one-rank "dw" axis, and the 4 sectors
+# (3 or 9, 3 or 9), of dim 48,400 and one bucket: a batch of 4 split
+# over the two ranks.
+MESH_SWEEP_DW = ((6, 6),)
+MESH_SWEEP_SECTOR = tuple((a, b) for a in (5, 6, 7) for b in (5, 6, 7)) \
+    + ((3, 3), (3, 9), (9, 3), (9, 9))
+MESH_SOLVES = (("metric2_dw", (1, 2), "metric2", MESH_SWEEP_DW),
+               ("metric2_sector", (2, 1), "metric2", MESH_SWEEP_SECTOR),
+               ("bhz_sector", (2, 1), "bhz", MESH_SWEEP_SECTOR))
+MESH_TOL = dict(egs=1e-7, dens=1e-7, sigma=2e-5)
+
+
+def solve_summary(solver):
+    return {"egs": solver.egs, "dens": np.asarray(solver.dens()),
+            "smats": np.asarray(solver.sigma_matsubara())}
+
+
+def mesh_worker(rank, world, store_path, out_dir, which):
+    """One rank of mesh_solve's solve ``which`` (an entry of
+    MESH_SOLVES) on its mesh, in its own work directory; writes its
+    results to ``out_dir/<name>_rank<r>.pkl``."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from cdmft_lanc_ed_torch.ops import fused, large, lanczos
+    from cdmft_lanc_ed_torch.parallel import (distributed, multichip,
+                                              sharded_spmv)
+    distributed.init_distributed(device="cuda", backend="gloo",
+                                 store=dist.FileStore(store_path, world),
+                                 rank=rank, world_size=world)
+    name, layout, model, sweep = which
+    torch.set_num_threads(1)
+    try:
+        multichip.set_solver_mesh(multichip.make_mesh(
+            world, n_sector=layout[0], device="cuda"))
+        wd = tempfile.mkdtemp(dir=out_dir, prefix=f"{name}_r{rank}_")
+        with open(f"{wd}/sectors_list.restart", "w") as fh:
+            fh.writelines(" %d %d\n" % s for s in sweep)
+        kw = dict(ed_sectors=True, ed_sectors_shift=0)
+        solver, bath, _, hloc = metric2_setup(wd, ed_verbose=0, **kw) \
+            if model == "metric2" else bhz_setup(wd, "mixed", **kw)
+        fused.launches = fused.pair_launches = large.launches = 0
+        lanczos.f64_fallbacks = 0
+        sharded_spmv.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        solver.solve(bath, hloc)
+        torch.cuda.synchronize()
+        out = dict(
+            solve_summary(solver), seconds=time.time() - t0,
+            stages_s=dict(solver.timers.totals),
+            fused_real_matvec=fused.launches,
+            fused_pair_matvec=fused.pair_launches,
+            blk_spmm=large.launches, exchanges=sharded_spmv.exchanges,
+            exchange_bytes=sharded_spmv.exchange_bytes,
+            f64_fallbacks=lanczos.f64_fallbacks,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    finally:
+        multichip.set_solver_mesh(None)
+        dist.destroy_process_group()
+    with open(f"{out_dir}/{name}_rank{rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+
+
+class MeshJobs:
+    """mesh_solve's pairs of gloo ranks on the one card, one pair per
+    solve of MESH_SOLVES, all started at once."""
+
+    def __init__(self):
+        import gc
+        import os
+        import torch
+        import torch.multiprocessing as tmp
+        gc.collect()
+        torch.cuda.empty_cache()        # the cache of earlier phases
+        self.t0 = time.time()
+        self.dir = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+        wd = self.dir.name
+        # six processes share the host's cores: one BLAS and OpenMP
+        # thread in each rank (read when a child starts; with eight each
+        # they ran 3-5x slower)
+        saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS",
+                                                "OPENBLAS_NUM_THREADS")}
+        os.environ.update({k: "1" for k in saved})
+        try:
+            self.jobs = [tmp.start_processes(
+                mesh_worker, args=(2, f"{wd}/store_{w[0]}", wd, w),
+                nprocs=2, join=False, start_method="spawn")
+                for w in MESH_SOLVES]
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def join(self):
+        """Wait for every rank; raises when one failed."""
+        for job in self.jobs:
+            while not job.join():
+                pass
+        self.seconds = time.time() - self.t0
+
+    def stop(self):
+        """Stop any rank still running and remove the work directory."""
+        for job in self.jobs:
+            for p in job.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        self.dir.cleanup()
+
+
+def phase_mesh_solve(refs):
+    """The solves of MESH_SOLVES on pairs of gloo ranks (MeshJobs): the
+    metric-2 solve on a (1, 2) mesh (the dw-sharded route for every
+    sector of dim >= 64·1024) and on a (2, 1) mesh (same-bucket batches
+    split over the ranks), and the BHZ chain's mixed solve on (2, 1);
+    each held to ``refs`` (the single-card solves).  A rank that fails
+    fails the phase; every rank is stopped before this returns.  Returns
+    the kernels' launches summed over the ranks."""
+    import pickle
+    jobs = MeshJobs()
+    try:
+        jobs.join()
+    except Exception as exc:                # a rank failed
+        jobs.stop()
+        fail("mesh_solve", f"a rank failed: {exc}")
+    ranks = []
+    for r in range(2):
+        out = {}
+        for name, *_ in MESH_SOLVES:
+            with open(f"{jobs.dir.name}/{name}_rank{r}.pkl", "rb") as fh:
+                out[name] = pickle.load(fh)
+        ranks.append(out)
+    jobs.stop()
+    records, checks = {}, {}
+    for name, layout, model, sweep in MESH_SOLVES:
+        ref = refs[model]
+        rec = {"layout": list(layout), "ranks": [],
+               "sweep": [list(s) for s in sweep]}
+        for r, out in enumerate(ranks):
+            o = out[name]
+            gaps = {"egs": abs(o["egs"] - ref["egs"]),
+                    "dens": float(np.abs(o["dens"] - ref["dens"]).max()),
+                    "sigma": float(np.abs(o["smats"] - ref["smats"]).max()
+                                   / np.abs(ref["smats"]).max())}
+            checks[f"{name}_rank{r}"] = all(gaps[k] <= MESH_TOL[k]
+                                            for k in gaps)
+            hv = o["exchanges"] / 2
+            rec["ranks"].append({
+                "seconds": o["seconds"], "stages_s": o["stages_s"],
+                "gaps": gaps, "exchanges": o["exchanges"],
+                "exchange_bytes": o["exchange_bytes"],
+                "bytes_per_hv": o["exchange_bytes"] / hv if hv else 0.0,
+                "launches": {k: o[k] for k in ("fused_real_matvec",
+                                               "fused_pair_matvec",
+                                               "blk_spmm")},
+                "f64_fallbacks": o["f64_fallbacks"],
+                "max_memory_allocated_gb": o["max_memory_allocated_gb"]})
+        records[name] = rec
+    checks["dw_route_exchanged"] = all(
+        out["metric2_dw"]["exchanges"] > 0 for out in ranks)
+    checks["sector_route_ran_the_kernels"] = all(
+        out["metric2_sector"]["fused_real_matvec"] > 0
+        and out["bhz_sector"]["fused_pair_matvec"] > 0 for out in ranks)
+    launches = {k: sum(out[n][k] for out in ranks for n, *_ in
+                       MESH_SOLVES)
+                for k in ("fused_real_matvec", "fused_pair_matvec",
+                          "blk_spmm")}
+    emit({"phase": "mesh_solve", "ranks": 2, "backend": "gloo",
+          "tolerance": MESH_TOL, "solves": records,
+          "launches": launches, "seconds": jobs.seconds,
+          "checks": checks})
+    if not all(checks.values()):
+        fail("mesh_solve", f"checks failed: {checks}")
     return launches
+
+
+def phase_mesh_large(workdir, g_ref):
+    """World size 1 over NCCL, a (1, 1) mesh: the Ns=16 flagship's (8,8)
+    sector solved and its GF chains run through parallel.sharded_large at
+    full width, with real NCCL all-to-alls over one rank: E0 within 1e-7
+    of the anchor, G(iw) within 1e-8 of its largest entry from
+    large_solve's.  The exchanges are timed with CUDA events."""
+    import torch
+    import torch.distributed as dist
+    from cdmft_lanc_ed_torch.ops import large, lanczos
+    from cdmft_lanc_ed_torch.parallel import (distributed, multichip,
+                                              sharded_spmv)
+    mesh = distributed.init_distributed(
+        store=dist.FileStore(f"{workdir}/store", 1), rank=0, world_size=1)
+    try:
+        multichip.set_solver_mesh(mesh)
+        solver, bath, hloc = flagship_solver(
+            workdir, ed_precision="mixed",
+            ed_gf_precision=NS16_GF_PRECISION, ed_sectors=True,
+            ed_sectors_shift=0, ed_verbose=3)
+        with open(f"{workdir}/sectors_list.restart", "w") as fh:
+            fh.write(" %d %d\n" % NS16_SECTOR)
+        large.launches = 0
+        large.launches_by.clear()
+        lanczos.f64_fallbacks = 0
+        sharded_spmv.reset_counters()
+        sharded_spmv.timing = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        solver.solve(bath, hloc)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        exch_s = sharded_spmv.exchange_seconds()
+        backend = dist.get_backend()
+    finally:
+        sharded_spmv.timing = False
+        multichip.set_solver_mesh(None)
+        dist.destroy_process_group()
+    gm = solver.gimp_matsubara()
+    g_gap = float(np.abs(gm - g_ref).max() / np.abs(g_ref).max())
+    checks = {"egs_anchor": abs(solver.egs - E0_NS16) <= E0_NS16_TOL,
+              "g_vs_large_solve": g_gap <= 1e-8,
+              "nccl": backend == "nccl",
+              "exchanged": sharded_spmv.exchanges > 0,
+              "kernel_launched": large.launches > 0,
+              "vector_on_card": isinstance(
+                  solver.diag_state.state_list[0].vector, torch.Tensor)}
+    emit({"phase": "mesh_large", "mesh": [1, 1], "backend": backend,
+          "sector": list(NS16_SECTOR), "egs": solver.egs,
+          "egs_err": abs(solver.egs - E0_NS16), "g_gap": g_gap,
+          "wall_s": wall, "stages_s": dict(solver.timers.totals),
+          "exchanges": sharded_spmv.exchanges,
+          "exchange_s": exch_s, "blk_spmm_launches": large.launches,
+          "launches_by_type": dict(large.launches_by),
+          "f64_fallbacks": lanczos.f64_fallbacks,
+          "max_memory_allocated_gb":
+              torch.cuda.max_memory_allocated() / 1e9,
+          "checks": checks})
+    if not all(checks.values()):
+        fail("mesh_large", f"checks failed: {checks}")
+    return large.launches
 
 
 def main():
@@ -1596,17 +2026,22 @@ def main():
 
     worst, timing = phase_kernel(peaks)
     pair_worst, pair_timing = phase_pair_kernel(peaks)
-    blk_timing = phase_large_kernel(peaks)
+    blk_timing, bhz16 = phase_large_kernel(peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         phase_plaquette(wd)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-        launches = phase_loop(wd, args.loops, peaks, args.profile)
+        launches, metric2_ref = phase_loop(wd, args.loops, peaks,
+                                           args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         doped_launches = phase_doped_loop(wd, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         rp_launches = phase_realpair_gf(wd, peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-        phase_bhz_post(*phase_bhz_solve(wd, peaks))
+        bhz_solver, bhz_hk = phase_bhz_solve(wd, peaks)
+        bhz_ref = solve_summary(bhz_solver)
+        phase_bhz_post(bhz_solver, bhz_hk)
+        del bhz_solver
+    mesh = phase_mesh_solve({"metric2": metric2_ref, "bhz": bhz_ref})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         pair_launches = phase_bhz_loop(wd, args.bhz_loops, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
@@ -1615,7 +2050,10 @@ def main():
         edge_launches, conf, edge = phase_edge_loop(wd, peaks)
         phase_edge_post(conf, edge)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-        blk_launches = phase_large_solve(wd, args.profile)
+        blk_launches, g_ns16 = phase_large_solve(wd, args.profile)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+        mesh_large_launches = phase_mesh_large(wd, g_ns16)
+    pair16_launches = phase_large_pair_solve(*bhz16)
 
     def entry(name, replaces, by_path, err, tm):
         """``launches_by_path`` has every path that runs the kernel, each
@@ -1632,12 +2070,20 @@ def main():
     emit({"kernels": [
         entry("fused_real_matvec", "pallas_fused.py:96",
               {"loop": launches, "doped_loop": doped_launches,
-               "realpair_gf": rp_launches}, worst, timing),
+               "realpair_gf": rp_launches,
+               "mesh_solve": mesh["fused_real_matvec"]}, worst, timing),
         entry("fused_pair_matvec", "pallas_fused.py:179",
               {"bhz_loop": pair_launches, "kanemele_solve": km_launches,
-               "edge_loop": edge_launches}, pair_worst, pair_timing),
-        entry("blk_spmm", "large.py:403", {"large_solve": blk_launches},
-              blk_timing["max_abs_err"], blk_timing)],
+               "edge_loop": edge_launches,
+               "mesh_solve": mesh["fused_pair_matvec"]}, pair_worst,
+              pair_timing),
+        dict(entry("blk_spmm", "large.py:403",
+                   {"large_solve": blk_launches,
+                    "mesh_large": mesh_large_launches,
+                    "large_pair_solve": pair16_launches,
+                    "mesh_solve": mesh["blk_spmm"]},
+                   blk_timing["max_abs_err"], blk_timing),
+             types=list(BLK_TOL))],
         "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

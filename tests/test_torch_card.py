@@ -362,3 +362,98 @@ def test_pair_kernel_at_the_edge_cluster_batch(card):
     y64 = split.apply_pair_flat_batched(st64, x)
     assert float((y32.to(torch.complex128) - y64).abs().max()) \
         <= 1e-3 * float(y64.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,empty_band", [(2100, 512, False),
+                                            (1100, 77, True),
+                                            (2100, 77, True),
+                                            (2100, 1536, True),
+                                            (2100, 514, False)])
+def test_blk_spmm_bf16c_matches_plain(card, m, n, empty_band):
+    """The bf16 complex instantiation ([T, 128, 128, 2] bf16 (re, im)
+    tiles, complex64 x cast to bf16 pairs, complex64 y) on the factors of
+    test_blk_spmm_matches_plain, at a ragged n (77, 514: one element per
+    access) and at 512 and 1536 (16-byte accesses, 4 pairs each).  Held to
+    the plain version on the same bf16 inputs (only the order of the f32
+    sums differs: 1e-5), and to the complex64 product of the unrounded
+    inputs within the bf16 bound 2^-7·(|A|·|x|)."""
+    f = _blk_factor(31, m, True, empty_band)
+    rng = np.random.default_rng(32)
+    x = rng.normal(size=(f.nb * large.B, n)) \
+        + 1j * rng.normal(size=(f.nb * large.B, n))
+    tiles = torch.view_as_real(torch.as_tensor(f.tiles, device=card)).to(
+        torch.bfloat16)
+    xt = torch.as_tensor(x, device=card).to(torch.complex64)
+    rb, cb = (torch.as_tensor(a, device=card)
+              for a in (f.row_blk, f.col_blk))
+    n0 = large.launches_by.get("blk_spmm_bf16c", 0)
+    y = large.blk_spmm(rb, cb, tiles, xt, f.nb)
+    torch.cuda.synchronize()
+    assert large.launches_by["blk_spmm_bf16c"] == n0 + 1
+    ref = large.blk_spmm_ref(rb, cb, tiles, xt, f.nb)
+    assert y.dtype == ref.dtype == torch.complex64
+    assert bool(torch.isfinite(y).all())
+    if empty_band:
+        assert not bool(y[8 * large.B:16 * large.B].any())
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    t64 = torch.as_tensor(f.tiles, device=card).to(torch.complex64)
+    y64 = large.blk_spmm_ref(rb, cb, t64, xt, f.nb)
+    bound = 2.0 ** -7 * large.blk_spmm_ref(
+        rb, cb, t64.real.abs() + t64.imag.abs(),
+        xt.real.abs() + xt.imag.abs(), f.nb)
+    assert bool(((y - y64).abs() <= bound + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("complex_h", [False, True])
+def test_sharded_large_one_rank_nccl(card, tmp_path, complex_h):
+    """parallel.sharded_large on a (1, 1) mesh over NCCL (real
+    all-to-alls over one rank): the one-vector and batched appliers
+    launch the kernel and agree with the large kit's f64 appliers."""
+    import torch.distributed as dist
+    from cdmft_lanc_ed_torch import EDConfig
+    from cdmft_lanc_ed_torch.ops import sector_ham
+    from cdmft_lanc_ed_torch.parallel import distributed, sharded_large
+    nn = (2, 2, 1, 1, 2, 2)
+    hloc = np.zeros(nn, np.complex128)
+    for o in range(2):
+        hloc[0, 1, 0, 0, o, o] = -1.0 + (0.3j if complex_h else 0.0)
+        hloc[1, 0, 0, 0, o, o] = np.conj(hloc[0, 1, 0, 0, o, o])
+    hrec = np.zeros((1,) + nn, np.complex128)
+    hrec[0, 0, 0, 0, 0, 0, 0] = hrec[0, 1, 1, 0, 0, 1, 1] = -0.4
+    cfg = EDConfig(nlat=2, norb=2, nspin=1, nbath=1, uloc=[2.0, 2.0],
+                   ust=0.5, jh=0.3, jx=0.3, jp=0.3)
+    op = sector_ham.build_sector_operator(cfg, hloc, hrec,
+                                          np.full((2, 1, 2, 1), 0.45), 3, 3)
+    assert op.nd_terms
+    mesh = distributed.init_distributed(
+        store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        dev, real, dim_loc, embed, extract = \
+            sharded_large.build_sharded_large_kit(op, mesh, torch.float64,
+                                                  device=card)
+        ref, _, dim_p, rembed, rextract = large.build_pair_padded_large(
+            op, dtype=torch.float64, device=card)
+        assert real == (not complex_h) and dim_loc == dim_p
+        rng = np.random.default_rng(33)
+        v = rng.normal(size=(3, op.dim))
+        if complex_h:
+            v = v + 1j * rng.normal(size=v.shape)
+        vt = torch.as_tensor(v, device=card)
+        n0 = large.launches
+        y1 = extract(sharded_large.apply_sharded_large_real_flat(
+            dev, embed(vt[0])))
+        yb = extract(sharded_large.apply_sharded_large_real_flat_batched(
+            dev, embed(vt)))
+        torch.cuda.synchronize()
+        assert large.launches == n0 + 4
+        want = rextract(large.apply_large_real_flat_batched(ref,
+                                                            rembed(vt)))
+        scale = float(want.abs().max())
+        assert float((y1 - want[0]).abs().max()) <= 1e-12 * scale
+        assert float((yb - want).abs().max()) <= 1e-12 * scale
+    finally:
+        dist.destroy_process_group()
