@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import math
 import os
-import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Optional
@@ -46,6 +45,7 @@ from .eigenspace import StateList
 from .ops import large, lanczos, sector_ham, split
 from .parallel import multichip, sharded_large
 from .utils import fock
+from .utils.timer import span, to_host
 
 
 @dataclass
@@ -209,79 +209,92 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
         chunk = members[lo:lo + bmax]
         if len(chunk) < 2:
             break
-        t0 = time.time()
-        batch, fillers = list(chunk), []
-        if nsec > 1 and len(batch) % nsec:
-            padn = nsec - len(batch) % nsec
-            for lv in list(leftovers):
-                if len(fillers) >= padn:
-                    break
-                lop = lv[1]
-                if (lop.dim_dw <= ddp and lop.dim_up <= dup
-                        and len(lop.nd_terms) == nterms
-                        and split.op_is_real(lop) == is_real
-                        and lv[2] > ncv_g):
-                    fillers.append(lv)
-                    leftovers.remove(lv)
-            batch += fillers
-            batch += [batch[j % len(batch)]
-                      for j in range(padn - len(fillers))]
-        solved = list(chunk) + fillers
-        neigen_g = max(m[3] for m in solved)
-        maxiter_g = max(m[5] for m in solved) * ncv_g
-        rng = np.random.default_rng(8527)
-        # start vectors drawn member by member, as the JAX package draws
-        # them (a complex member takes its real then its imaginary part)
-        v0 = np.stack([split.embed_real(
-            rng.normal(size=m[2]) if is_real
-            else rng.normal(size=m[2]) + 1j * rng.normal(size=m[2]),
-            m[1].dim_dw, m[1].dim_up, ddp, dup) for m in batch])
-        # this rank's share of the batch (all of it without a sector axis)
-        mine = multichip.shard_batched_stack(range(len(batch)), mesh)
-        ops = [batch[i][1] for i in mine]
-        v0 = v0[mine.start:mine.stop]
-        if cfg.ed_precision == "mixed":
-            def fb64(i, v0_row, _ops=ops):
-                # full-f64 polish at the caller's tolerance
-                apply1, dev_i = _kit(_ops[i], torch.float64, device)[:2]
-                solve1 = (lanczos.lanczos_eigh_real if is_real
-                          else lanczos.lanczos_eigh_split)
-                return solve1(
-                    apply1, dim_p, neigen=neigen_g, ncv=ncv_g,
-                    maxiter=maxiter_g,
-                    tol=max(cfg.lanc_tolerance, lanczos._f64_dot_floor()),
-                    v0=v0_row, op=dev_i)
+        with span("diag.batch",
+                  sectors=[(m[1].nup, m[1].ndw) for m in chunk],
+                  bucket=(ddp, dup),
+                  kind="real" if is_real else "complex") as sp:
+            batch, fillers = list(chunk), []
+            if nsec > 1 and len(batch) % nsec:
+                padn = nsec - len(batch) % nsec
+                for lv in list(leftovers):
+                    if len(fillers) >= padn:
+                        break
+                    lop = lv[1]
+                    if (lop.dim_dw <= ddp and lop.dim_up <= dup
+                            and len(lop.nd_terms) == nterms
+                            and split.op_is_real(lop) == is_real
+                            and lv[2] > ncv_g):
+                        fillers.append(lv)
+                        leftovers.remove(lv)
+                batch += fillers
+                batch += [batch[j % len(batch)]
+                          for j in range(padn - len(fillers))]
+            solved = list(chunk) + fillers
+            neigen_g = max(m[3] for m in solved)
+            maxiter_g = max(m[5] for m in solved) * ncv_g
+            # this rank's share of the batch (all of it without a sector
+            # axis)
+            mine = multichip.shard_batched_stack(range(len(batch)), mesh)
+            ops = [batch[i][1] for i in mine]
 
-            res_list = mixed(
-                apply_b, apply_b, len(ops), dim_p, neigen=neigen_g,
-                ncv=ncv_g, maxiter=maxiter_g, tol=cfg.lanc_tolerance, v0=v0,
-                op32=stack(ops, (ddp, dup), dtype=torch.float32,
-                           device=device),
-                op64=lambda _o=ops: stack(_o, (ddp, dup), device=device),
-                fallback64=fb64, vec_rtol=cfg.ed_mixed_vec_tol)
-        else:
-            res_list = eigh(
-                apply_b, len(ops), dim_p, neigen=neigen_g, ncv=ncv_g,
-                maxiter=maxiter_g, tol=cfg.lanc_tolerance, v0=v0,
-                op=stack(ops, (ddp, dup), device=device))
-        gathered = multichip.gather_batched(
-            [(np.asarray(r.eigenvalues), np.asarray(r.eigenvectors),
-              r.converged) for r in res_list], mesh)
-        for m, (vals, vecs, converged) in zip(solved, gathered):
-            isector, op, dim, neigen = m[0], m[1], m[2], m[3]
-            if not converged:
-                warnings.warn(
-                    f"sector {isector}: batched eigensolve halted above "
-                    f"the certification floor; retained eigenpairs may be "
-                    f"degraded", RuntimeWarning)
-            vecs = split.extract_real(vecs[:neigen], op.dim_dw, op.dim_up,
-                                      ddp, dup)
-            results[isector] = (vals[:neigen], vecs)
-        pad = f", {len(mine)} of {len(batch)} on this rank, " \
-            f"{len(fillers)} pad slots filled" if nsec > 1 else ""
-        verbose(f"batched {len(solved)} {'real' if is_real else 'complex'} "
-                f"sectors (bucket {ddp}x{dup}, ncv={ncv_g}{pad}) "
-                f"[{time.time() - t0:6.2f}s]")
+            def stacked(dtype=torch.float64, _o=ops):
+                with span("diag.batch.stack"):
+                    return stack(_o, (ddp, dup), dtype=dtype, device=device)
+
+            with span("diag.batch.stack"):
+                rng = np.random.default_rng(8527)
+                # start vectors drawn member by member, as the JAX package
+                # draws them (a complex member takes its real then its
+                # imaginary part)
+                v0 = np.stack([split.embed_real(
+                    rng.normal(size=m[2]) if is_real
+                    else rng.normal(size=m[2]) + 1j * rng.normal(size=m[2]),
+                    m[1].dim_dw, m[1].dim_up, ddp, dup) for m in batch])
+                v0 = v0[mine.start:mine.stop]
+            if cfg.ed_precision == "mixed":
+                def fb64(i, v0_row, _ops=ops):
+                    # full-f64 polish at the caller's tolerance
+                    with span("lanczos.f64_resolve",
+                              sector=(_ops[i].nup, _ops[i].ndw)):
+                        apply1, dev_i = _kit(_ops[i], torch.float64,
+                                             device)[:2]
+                        solve1 = (lanczos.lanczos_eigh_real if is_real
+                                  else lanczos.lanczos_eigh_split)
+                        return solve1(
+                            apply1, dim_p, neigen=neigen_g, ncv=ncv_g,
+                            maxiter=maxiter_g,
+                            tol=max(cfg.lanc_tolerance,
+                                    lanczos._f64_dot_floor()),
+                            v0=v0_row, op=dev_i)
+                res_list = mixed(
+                    apply_b, apply_b, len(ops), dim_p, neigen=neigen_g,
+                    ncv=ncv_g, maxiter=maxiter_g, tol=cfg.lanc_tolerance,
+                    v0=v0, op32=stacked(torch.float32), op64=stacked,
+                    fallback64=fb64, vec_rtol=cfg.ed_mixed_vec_tol)
+            else:
+                res_list = eigh(
+                    apply_b, len(ops), dim_p, neigen=neigen_g, ncv=ncv_g,
+                    maxiter=maxiter_g, tol=cfg.lanc_tolerance, v0=v0,
+                    op=stacked())
+            gathered = multichip.gather_batched(
+                [(np.asarray(r.eigenvalues), np.asarray(r.eigenvectors),
+                  r.converged) for r in res_list], mesh)
+            for m, (vals, vecs, converged) in zip(solved, gathered):
+                isector, op, dim, neigen = m[0], m[1], m[2], m[3]
+                if not converged:
+                    warnings.warn(
+                        f"sector {isector}: batched eigensolve halted above "
+                        f"the certification floor; retained eigenpairs may "
+                        f"be degraded", RuntimeWarning)
+                vecs = split.extract_real(vecs[:neigen], op.dim_dw,
+                                          op.dim_up, ddp, dup)
+                results[isector] = (vals[:neigen], vecs)
+            pad = f", {len(mine)} of {len(batch)} on this rank, " \
+                f"{len(fillers)} pad slots filled" if nsec > 1 else ""
+            verbose(f"batched {len(solved)} "
+                    f"{'real' if is_real else 'complex'} "
+                    f"sectors (bucket {ddp}x{dup}, ncv={ncv_g}{pad}) "
+                    f"[{sp.seconds():6.2f}s]")
 
 
 def _solve_large(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
@@ -297,8 +310,9 @@ def _solve_large(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
     if cfg.ed_precision == "mixed":
         dev32, _, dim_p, embed, extract = large.build_pair_padded_large(
             op, dtype=torch.float32, device=device)
-        v0 = embed(rng.normal(size=dim)) if real else \
-            embed(rng.normal(size=dim) + 1j * rng.normal(size=dim))
+        with span("diag.large.start"):
+            v0 = embed(rng.normal(size=dim)) if real else \
+                embed(rng.normal(size=dim) + 1j * rng.normal(size=dim))
         op64 = lambda: large.build_pair_padded_large(  # noqa: E731
             op, dtype=torch.float64, device=device)[0]
         # two-stage Krylov: bf16 tiles (real, or complex (re, im) pairs)
@@ -315,14 +329,12 @@ def _solve_large(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
     else:
         dev, _, dim_p, embed, extract = large.build_pair_padded_large(
             op, dtype=torch.float64, device=device)
-        if real:
-            res = lanczos.lanczos_eigh_real(
-                apply1, dim_p, v0=embed(rng.normal(size=dim)), op=dev, **kw)
-        else:
-            res = lanczos.lanczos_eigh_split(
-                apply1, dim_p, v0=embed(rng.normal(size=dim)
-                                        + 1j * rng.normal(size=dim)),
-                op=dev, **kw)
+        with span("diag.large.start"):
+            v0 = embed(rng.normal(size=dim)) if real else \
+                embed(rng.normal(size=dim) + 1j * rng.normal(size=dim))
+        solve = lanczos.lanczos_eigh_real if real \
+            else lanczos.lanczos_eigh_split
+        res = solve(apply1, dim_p, v0=v0, op=dev, **kw)
     return lanczos.EighResult(res.eigenvalues, extract(res.eigenvectors),
                               res.iterations, res.converged)
 
@@ -362,7 +374,7 @@ def _solve_sharded(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
         res = solve(apply1, dim_loc, v0=embed(v), op=dev, **kw)
     vecs = extract(res.eigenvectors)
     if not is_large(op):
-        vecs = vecs.cpu().numpy()
+        vecs = to_host(vecs)
     return lanczos.EighResult(res.eigenvalues, vecs, res.iterations,
                               res.converged)
 
@@ -499,50 +511,55 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
             sector_plan(isector)
         tflag = cfg.ed_twin and (nup != ndw)
 
-        t0 = time.time()
         if isector in batched_results:
             eig_values, eig_basis = batched_results.pop(isector)
             verbose(f"sector {isector:5d} (nup={nup:2d},ndw={ndw:2d}) "
                     f"dim={dim:8d} lanc(batched) "
                     f"E0={eig_values[0]: .10f}")
             eig_log.append((isector, nup, ndw, eig_values[:neigen]))
-            retain(eig_values, eig_basis, isector, tflag)
+            with span("diag.retain"):
+                retain(eig_values, eig_basis, isector, tflag)
             continue
-        op = build(nup, ndw)
-        if lanc_solve:
-            res = _solve_serial(cfg, op, dim, neigen, nblock, nitermax,
-                                device)
-            # escalate-on-stall: retry with grown ncv/maxiter (bounded by
-            # the device memory budget) before anything is retained
-            esc = 0
-            while not res.converged and esc < 2 and nblock < dim:
-                grown = int(min(dim, max(nblock * 2, nblock + 4)))
-                if (grown + 1) * dim * 16 > budget_bytes(device, 0.25):
-                    break
-                verbose(f"sector {isector}: unconverged at ncv={nblock}; "
-                        f"escalating to ncv={grown}, maxiter x2")
-                nblock, nitermax = grown, nitermax * 2
+        kind = ("diag.large" if large_sector(ns, nup, ndw) else
+                "diag.serial") if lanc_solve else "diag.dense"
+        with span(kind, sector=(nup, ndw), dim=dim) as sp:
+            op = build(nup, ndw)
+            if lanc_solve:
                 res = _solve_serial(cfg, op, dim, neigen, nblock, nitermax,
                                     device)
-                esc += 1
-            if not res.converged:
-                warnings.warn(
-                    f"sector {isector}: eigensolve did not reach tolerance "
-                    f"after ncv escalation to {nblock}; retained eigenpairs "
-                    f"may be degraded", RuntimeWarning)
-            eig_values = np.asarray(res.eigenvalues)
-            eig_basis = res.eigenvectors          # large: on the device
-            if not isinstance(eig_basis, torch.Tensor):
-                eig_basis = np.asarray(eig_basis)
-        else:
-            w, vecs = lanczos.dense_eigh(op.to_dense())
-            eig_values = w[:neigen]
-            eig_basis = vecs[:neigen]
+                # escalate-on-stall: retry with grown ncv/maxiter (bounded
+                # by the device memory budget) before anything is retained
+                esc = 0
+                while not res.converged and esc < 2 and nblock < dim:
+                    grown = int(min(dim, max(nblock * 2, nblock + 4)))
+                    if (grown + 1) * dim * 16 > budget_bytes(device, 0.25):
+                        break
+                    verbose(f"sector {isector}: unconverged at ncv={nblock}; "
+                            f"escalating to ncv={grown}, maxiter x2")
+                    nblock, nitermax = grown, nitermax * 2
+                    res = _solve_serial(cfg, op, dim, neigen, nblock,
+                                        nitermax, device)
+                    esc += 1
+                if not res.converged:
+                    warnings.warn(
+                        f"sector {isector}: eigensolve did not reach "
+                        f"tolerance after ncv escalation to {nblock}; "
+                        f"retained eigenpairs may be degraded",
+                        RuntimeWarning)
+                eig_values = np.asarray(res.eigenvalues)
+                eig_basis = res.eigenvectors          # large: on the device
+                if not isinstance(eig_basis, torch.Tensor):
+                    eig_basis = np.asarray(eig_basis)
+            else:
+                w, vecs = lanczos.dense_eigh(op.to_dense())
+                eig_values = w[:neigen]
+                eig_basis = vecs[:neigen]
         verbose(f"sector {isector:5d} (nup={nup:2d},ndw={ndw:2d}) dim={dim:8d}"
                 f" {'lanc' if lanc_solve else 'eigh'}"
-                f" E0={eig_values[0]: .10f} [{time.time()-t0:6.2f}s]")
+                f" E0={eig_values[0]: .10f} [{sp.seconds():6.2f}s]")
         eig_log.append((isector, nup, ndw, eig_values[:neigen]))
-        retain(eig_values, eig_basis, isector, tflag)
+        with span("diag.retain"):
+            retain(eig_values, eig_basis, isector, tflag)
 
     # eigenvalues_list.ed (ED_DIAG.f90:247-252)
     try:
@@ -553,7 +570,8 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
     except OSError:
         pass
 
-    _post_diag(state, verbose)
+    with span("diag.retain"):
+        _post_diag(state, verbose)
 
     if cfg.finite_temp:
         state.save_histogram(os.path.join(

@@ -43,6 +43,7 @@ from .ops import large, lanczos, split
 from .parallel import multichip, sharded_large
 from .utils import fock
 from .utils.reshape import lso2nnn, nnn2lso
+from .utils.timer import span, to_host
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +315,7 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
                     continue
                 stacked = rows.take(0, len(recipe))
                 if on_dev:
-                    stacked = stacked.cpu().numpy()
+                    stacked = to_host(stacked)
                 is_real = not (np.iscomplexobj(stacked)
                                and np.abs(stacked.imag).max() > 0.0)
                 if is_real:
@@ -325,28 +326,30 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
     # --- one batched tridiagonalisation per target-sector group ---------
     for (jnup, jndw, is_real), entries in jobs.items():
         meta = [m for e in entries for m in e[1]]
-        op = build(jnup, jndw)
-        nlanc = min(op.dim, cfg.lanc_ngfiter)
-        if is_large(op):
-            chains = _chains_large(entries, op, is_real, nlanc, gf_dtype,
-                                   device)
-        else:
-            chains = _chains_dense(entries, op, is_real, nlanc, gf_dtype,
-                                   device, nimp)
-        for lo, (alphas, betas, norms) in chains:
-            for k, ((a, b), vfac, istate, ei, isign, ispin) in \
-                    enumerate(meta[lo:lo + len(norms)]):
-                ch = _chain_to_poles(alphas[k], betas[k],
-                                     float(norms[k]), vfac, ei, egs,
-                                     isign, cfg, zeta,
-                                     beta_floor=beta_floor)
-                if len(ch.poles):
-                    d = ch.poles * isign   # = de >= 0 excitation energies
-                    max_exc = max(max_exc, float(d.max()))
-                ilat, iorb = divmod(a, norb)
-                jlat, jorb = divmod(b, norb)
-                spec.add_channel((ilat, jlat, ispin, iorb, jorb),
-                                 istate, ch)
+        with span("gf.chains", sector=(jnup, jndw), rows=len(meta),
+                  large=large_sector(ns, jnup, jndw)):
+            op = build(jnup, jndw)
+            nlanc = min(op.dim, cfg.lanc_ngfiter)
+            if is_large(op):
+                chains = _chains_large(entries, op, is_real, nlanc, gf_dtype,
+                                       device)
+            else:
+                chains = _chains_dense(entries, op, is_real, nlanc, gf_dtype,
+                                       device, nimp)
+            for lo, (alphas, betas, norms) in chains:
+                for k, ((a, b), vfac, istate, ei, isign, ispin) in \
+                        enumerate(meta[lo:lo + len(norms)]):
+                    ch = _chain_to_poles(alphas[k], betas[k],
+                                         float(norms[k]), vfac, ei, egs,
+                                         isign, cfg, zeta,
+                                         beta_floor=beta_floor)
+                    if len(ch.poles):
+                        d = ch.poles * isign   # = de >= 0 excitation energies
+                        max_exc = max(max_exc, float(d.max()))
+                    ilat, iorb = divmod(a, norb)
+                    jlat, jorb = divmod(b, norb)
+                    spec.add_channel((ilat, jlat, ispin, iorb, jorb),
+                                     istate, ch)
         log(f"gf: target sector ({jnup},{jndw}) "
             f"{len(meta)} injections done")
     return spec, max_exc
@@ -518,7 +521,7 @@ def build_gf_and_sigma(cfg: EDConfig, hb: BathBasis, bath: DmftBath,
                 v = st.get_vector(cfg.ns)
                 if isinstance(v, torch.Tensor):     # reduced on the card
                     return not v.is_complex() or float(
-                        v.imag.abs().max()) == 0.0
+                        to_host(v.imag.abs().max())) == 0.0
                 return (not np.iscomplexobj(v)
                         or np.abs(v.imag).max(initial=0) == 0)
             force_sym = all(_vec_is_real(st) for st in state.state_list)
@@ -527,33 +530,34 @@ def build_gf_and_sigma(cfg: EDConfig, hb: BathBasis, bath: DmftBath,
 
     spec, max_exc = build_gf_normal(cfg, state, build, device, log,
                                     force_symmetric=force_sym)
-    gmats = evaluate_gf_nnn(spec, cfg, zmats)
-    greal = evaluate_gf_nnn(spec, cfg, zreal)
+    with span("gf.sigma"):
+        gmats = evaluate_gf_nnn(spec, cfg, zmats)
+        greal = evaluate_gf_nnn(spec, cfg, zreal)
 
-    # ---- Sigma = G0^{-1} - G^{-1} (build_sigma_normal), complex128 on
-    # the device ----
-    def lso_freq(g):      # [.,.,.,.,.,.,L] -> [L, Nlso, Nlso] on device
-        a = np.moveaxis(nnn2lso(g, nlat, nspin, norb), -1, 0)
-        return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+        # ---- Sigma = G0^{-1} - G^{-1} (build_sigma_normal), complex128 on
+        # the device ----
+        def lso_freq(g):      # [.,.,.,.,.,.,L] -> [L, Nlso, Nlso] on device
+            a = np.moveaxis(nnn2lso(g, nlat, nspin, norb), -1, 0)
+            return torch.as_tensor(np.ascontiguousarray(a)).to(device)
 
-    def to_nnn(a_lso_freq: torch.Tensor):
-        return lso2nnn(np.moveaxis(a_lso_freq.cpu().numpy(), 0, -1),
-                       nlat, nspin, norb)
+        def to_nnn(a_lso_freq: torch.Tensor):
+            return lso2nnn(np.moveaxis(to_host(a_lso_freq), 0, -1),
+                           nlat, nspin, norb)
 
-    hloc_lso = torch.as_tensor(np.ascontiguousarray(
-        nnn2lso(np.asarray(imp_hloc, np.complex128), nlat, nspin,
-                norb))).to(device)
-    basis_lso = basis_lso_of(cfg, hb, device)
-    v = torch.as_tensor(bath.v).to(device)
-    lam = torch.as_tensor(bath.lam).to(device)
-    invg0_m = invg0_bath_lso(torch.as_tensor(zmats).to(device), hloc_lso,
-                             cfg.xmu, v, lam, basis_lso)
-    invg0_r = invg0_bath_lso(torch.as_tensor(zreal).to(device), hloc_lso,
-                             cfg.xmu, v, lam, basis_lso)
-    smats = to_nnn(invg0_m - torch.linalg.inv(lso_freq(gmats)))
-    sreal = to_nnn(invg0_r - torch.linalg.inv(lso_freq(greal)))
-    g0mats = to_nnn(torch.linalg.inv(invg0_m))
-    g0real = to_nnn(torch.linalg.inv(invg0_r))
-    return GFResult(spectrum=spec, gmats=gmats, greal=greal, smats=smats,
-                    sreal=sreal, g0mats=g0mats, g0real=g0real,
-                    max_exc=max_exc, wm=wm, wr=wr)
+        hloc_lso = torch.as_tensor(np.ascontiguousarray(
+            nnn2lso(np.asarray(imp_hloc, np.complex128), nlat, nspin,
+                    norb))).to(device)
+        basis_lso = basis_lso_of(cfg, hb, device)
+        v = torch.as_tensor(bath.v).to(device)
+        lam = torch.as_tensor(bath.lam).to(device)
+        invg0_m = invg0_bath_lso(torch.as_tensor(zmats).to(device), hloc_lso,
+                                 cfg.xmu, v, lam, basis_lso)
+        invg0_r = invg0_bath_lso(torch.as_tensor(zreal).to(device), hloc_lso,
+                                 cfg.xmu, v, lam, basis_lso)
+        smats = to_nnn(invg0_m - torch.linalg.inv(lso_freq(gmats)))
+        sreal = to_nnn(invg0_r - torch.linalg.inv(lso_freq(greal)))
+        g0mats = to_nnn(torch.linalg.inv(invg0_m))
+        g0real = to_nnn(torch.linalg.inv(invg0_r))
+        return GFResult(spectrum=spec, gmats=gmats, greal=greal, smats=smats,
+                        sreal=sreal, g0mats=g0mats, g0real=g0real,
+                        max_exc=max_exc, wm=wm, wr=wr)

@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import budget_bytes
+from ..utils.timer import count, span, to_host
 from .split import complex_dtype, real_dtype
 
 
@@ -118,7 +119,7 @@ def _tridiag(apply_fn, v0, niter: int, op, dtype):
     group = _group_of(op)
     if isinstance(v0, torch.Tensor):
         nrm = _norms(v0, 1, group)
-        norms0 = nrm.cpu().numpy()
+        norms0 = to_host(nrm)
         v = (v0 / torch.where(nrm > 1e-300, nrm, 1.0)[:, None]).to(
             device=device, dtype=dtype)
     else:
@@ -144,8 +145,8 @@ def _tridiag(apply_fn, v0, niter: int, op, dtype):
         p, v, beta_prev = v, nxt, beta
         alphas[it] = alpha
         betas[it] = beta
-    return (alphas.T.cpu().numpy(), betas.T.cpu().numpy()[:, : niter - 1],
-            norms0)
+    count("gf.steps", niter)
+    return (to_host(alphas.T), to_host(betas.T)[:, : niter - 1], norms0)
 
 
 def lanczos_tridiag_batched_real(apply_fn, v0: np.ndarray, niter: int,
@@ -270,6 +271,10 @@ def _expand(apply_fn, op, b: torch.Tensor, k: int):
     return cs, betas
 
 
+# the precision of an H·v, as the lanczos.matvecs.<name> counters name it
+_DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64",
+                torch.complex64: "c64", torch.complex128: "c128"}
+
 # Rotated copy of Krylov vectors above which the restart and the Ritz
 # rotation run in column chunks (at Ns=16 the f64 Ritz copy would be
 # 28 GB)
@@ -299,37 +304,45 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
     coarse = op16 is not None
     kfix = min(neigen + max(neigen, (ncv - neigen) // 2), ncv - 1)
     while True:
-        cs_d, betas_d = _expand(apply_fn, op16 if coarse else op, basis, k)
-        cs = cs_d.cpu().numpy()                     # [ncv, B, ncv]
-        betas_np = betas_d.cpu().numpy()            # [ncv, B]
-        for j in range(k, ncv):
-            t_proj[:, : j + 1, j] = cs[j][:, : j + 1]
-            t_proj[:, j, : j + 1] = cs[j][:, : j + 1].conj()
-            if j + 1 < ncv:
-                t_proj[:, j + 1, j] = betas_np[j]
-                t_proj[:, j, j + 1] = betas_np[j]
-            nmv += 1
-        last_beta = betas_np[ncv - 1]               # [B]
-        theta, s = np.linalg.eigh(t_proj)
-        resid = np.abs(last_beta[:, None] * s[:, -1, :])
-        rel = resid[:, :neigen] / np.maximum(np.abs(theta[:, :neigen]), 1.0)
-        conv = np.all(rel <= tol, axis=1)
-        if coarse and (float(rel.max()) < 3e-3
-                       or stall.stalled(float(rel.max()))
-                       or nmv >= maxiter // 2):
-            coarse = False                  # bf16 resolution reached
-            op16 = None
-            stall = _StallGuard()
-        if coarse:
-            conv = np.zeros_like(conv)
-        if bool(conv.all()) or nmv >= maxiter or ncv >= dim \
-                or (not coarse and stall.stalled(float(rel.max()))):
-            return theta, s, conv, rel, nmv, basis
-        k = kfix
-        # restart on the device: the kept Ritz vectors, then the residual
-        sk = torch.as_tensor(np.ascontiguousarray(
-            s[:, :, :kfix].transpose(0, 2, 1))).to(device=device,
-                                                   dtype=dtype)
+        prec = "bf16" if coarse else _DTYPE_NAMES[dtype]
+        with span("lanczos.expand", steps=ncv - k, batch=nb, dtype=prec):
+            cs_d, betas_d = _expand(apply_fn, op16 if coarse else op, basis,
+                                    k)
+        count("lanczos.matvecs." + prec, ncv - k)
+        count("lanczos.restarts")
+        with span("lanczos.restart"):
+            cs = to_host(cs_d)                          # [ncv, B, ncv]
+            betas_np = to_host(betas_d)                 # [ncv, B]
+            for j in range(k, ncv):
+                t_proj[:, : j + 1, j] = cs[j][:, : j + 1]
+                t_proj[:, j, : j + 1] = cs[j][:, : j + 1].conj()
+                if j + 1 < ncv:
+                    t_proj[:, j + 1, j] = betas_np[j]
+                    t_proj[:, j, j + 1] = betas_np[j]
+                nmv += 1
+            last_beta = betas_np[ncv - 1]               # [B]
+            theta, s = np.linalg.eigh(t_proj)
+            resid = np.abs(last_beta[:, None] * s[:, -1, :])
+            rel = resid[:, :neigen] / np.maximum(np.abs(theta[:, :neigen]),
+                                                 1.0)
+            conv = np.all(rel <= tol, axis=1)
+            if coarse and (float(rel.max()) < 3e-3
+                           or stall.stalled(float(rel.max()))
+                           or nmv >= maxiter // 2):
+                coarse = False                  # bf16 resolution reached
+                op16 = None
+                stall = _StallGuard()
+            if coarse:
+                conv = np.zeros_like(conv)
+            if bool(conv.all()) or nmv >= maxiter or ncv >= dim \
+                    or (not coarse and stall.stalled(float(rel.max()))):
+                return theta, s, conv, rel, nmv, basis
+            k = kfix
+            # restart on the device: the kept Ritz vectors, then the
+            # residual
+            sk = torch.as_tensor(np.ascontiguousarray(
+                s[:, :, :kfix].transpose(0, 2, 1))).to(device=device,
+                                                       dtype=dtype)
         copy_bytes = nb * kfix * dim * _itemsize(dtype)
         if copy_bytes <= _RITZ_CHUNK_BYTES:
             rot = torch.bmm(sk, basis[:, :ncv])
@@ -395,7 +408,7 @@ def _eigh(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
     vecs = _ritz_vectors(basis, s, neigen, group)
     del basis
     if not device_vectors:
-        vecs = vecs.cpu().numpy()
+        vecs = to_host(vecs)
     return [EighResult(theta[i, :neigen].copy(), vecs[i], nmv,
                        _conv_ok(conv[i:i + 1], rel[i], eps, dim))
             for i in range(b)]
@@ -414,7 +427,7 @@ def _host_norms(v: np.ndarray, group, device) -> np.ndarray:
     if group is None:
         return np.linalg.norm(v, axis=1)
     sq = torch.as_tensor(np.sum(np.abs(v) ** 2, axis=1)).to(device)
-    return np.sqrt(_allsum(sq, group).cpu().numpy())
+    return np.sqrt(to_host(_allsum(sq, group)))
 
 
 def _unit(v0: np.ndarray, op=None) -> np.ndarray:
@@ -514,7 +527,7 @@ def _gram_orthonormal(block: torch.Tensor, group) -> torch.Tensor:
     Cholesky QR twice); directions below 1e-10 of the largest singular
     value are dropped, as the QR path drops them."""
     for _ in range(2):
-        g = _allsum(block.conj().T @ block, group).cpu().numpy()
+        g = to_host(_allsum(block.conj().T @ block, group))
         lam, u = np.linalg.eigh(0.5 * (g + g.conj().T))
         keep = lam > 1e-20 * max(lam.max(initial=0.0), 1e-300)
         block = block @ torch.as_tensor(u[:, keep]
@@ -545,7 +558,7 @@ def _orth_expand_block(qi: torch.Tensor, block: torch.Tensor, rng,
             qb = torch.cat([qb, _gram_orthonormal(extra, group)], dim=1)
         return qb
     qb, rr = torch.linalg.qr(block)
-    d = torch.diagonal(rr).abs().cpu().numpy()
+    d = to_host(torch.diagonal(rr).abs())
     scale = d.max() if d.size else 0.0
     bad = d <= max(scale, 1e-300) * 1e-10
     if bad.any():
@@ -583,21 +596,23 @@ def rayleigh_refine_real(matvec64, vecs: torch.Tensor, neigen: int,
     k_cap = max(q.shape[1], min(96, dim, budget_bytes(vecs.device, 0.25)
                                 // (3 * _itemsize(q.dtype) * dim)))
 
+    key = "lanczos.matvecs." + _DTYPE_NAMES[q.dtype]
+
     def hcols(cols):
+        count(key, cols.shape[1])
         return matvec64(cols.T.contiguous()).T
 
     w = hcols(q)
     theta = new_vecs = resid = None
     for it in range(max_expand + 1):
-        hk = _allsum(q.conj().T @ w, group).cpu().numpy()
+        hk = to_host(_allsum(q.conj().T @ w, group))
         hk = 0.5 * (hk + hk.conj().T)
         theta, s = np.linalg.eigh(hk)
         s_d = torch.as_tensor(s).to(q)
         new_vecs = q @ s_d
         wmix = w @ s_d
         th_d = torch.as_tensor(theta).to(q)
-        resid = _norms(wmix - new_vecs * th_d[None, :], 0,
-                       group).cpu().numpy()
+        resid = to_host(_norms(wmix - new_vecs * th_d[None, :], 0, group))
         done = (rtol is None or np.all(
             resid[:neigen] <= rtol * np.maximum(np.abs(theta[:neigen]),
                                                 1.0)))
@@ -635,6 +650,7 @@ def _canonical_rr(g_np, hk_np):
 
 def _apply_rows(apply_fn, op, x: torch.Tensor) -> torch.Tensor:
     """Batched operator on row blocks: x [B, k, dim] -> [B, k, dim]."""
+    count("lanczos.matvecs." + _DTYPE_NAMES[x.dtype], x.shape[1])
     return torch.stack([apply_fn(op, x[:, i]) for i in range(x.shape[1])],
                        dim=1)
 
@@ -672,14 +688,14 @@ def rayleigh_refine_real_batched(apply_fn, vecs: torch.Tensor, neigen: int,
         qh = q.conj()
         g = torch.bmm(qh, q.transpose(1, 2))          # <q_k|q_l>
         hk = torch.bmm(qh, w.transpose(1, 2))         # <q_k|H q_l>
-        g_np = (0.5 * (g + g.transpose(1, 2).conj())).cpu().numpy()
-        hk_np = (0.5 * (hk + hk.transpose(1, 2).conj())).cpu().numpy()
+        g_np = to_host(0.5 * (g + g.transpose(1, 2).conj()))
+        hk_np = to_host(0.5 * (hk + hk.transpose(1, 2).conj()))
         s_t, theta = _canonical_rr(g_np, hk_np)
         th = np.where(theta[:, :ne] >= 1e30, 0.0, theta[:, :ne])
         s_ne = torch.as_tensor(np.ascontiguousarray(s_t[:, :ne])).to(q)
         x = torch.bmm(s_ne, q)
         r = torch.bmm(s_ne, w) - torch.as_tensor(th).to(q)[:, :, None] * x
-        resid_np = torch.linalg.vector_norm(r, dim=2).cpu().numpy()
+        resid_np = to_host(torch.linalg.vector_norm(r, dim=2))
         # padded Ritz rows (whitening dropped directions): never accepted
         resid_np = np.where(theta[:, :ne] >= 1e30, np.inf, resid_np)
         done = (rtol is None or np.all(
@@ -702,8 +718,7 @@ def rayleigh_refine_real_batched(apply_fn, vecs: torch.Tensor, neigen: int,
         w[:, k_act:k_act + ne] = _apply_rows(apply_fn, op64, rhat)
         k_act += ne
     nrm = torch.linalg.vector_norm(x, dim=2, keepdim=True)
-    return (theta[:, :ne], (x / nrm.clamp_min(1e-300)).cpu().numpy(),
-            resid_np)
+    return (theta[:, :ne], to_host(x / nrm.clamp_min(1e-300)), resid_np)
 
 
 # ---------------------------------------------------------------------------
@@ -728,13 +743,14 @@ def _mixed(eigh, apply32, apply64, dim, neigen, ncv, maxiter, tol, v0,
     if callable(op64):
         op64 = op64()
     rtol = _mixed_vec_rtol(vec_rtol)
-    theta, vecs, resid = rayleigh_refine_real(
-        lambda x: apply64(op64, x), res32.eigenvectors, neigen,
-        rtol=rtol, max_expand=16, group=_group_of(op64))
+    with span("lanczos.refine"):
+        theta, vecs, resid = rayleigh_refine_real(
+            lambda x: apply64(op64, x), res32.eigenvectors, neigen,
+            rtol=rtol, max_expand=16, group=_group_of(op64))
     nmv = res32.iterations + len(res32.eigenvectors)
     if np.all(resid <= rtol * np.maximum(np.abs(theta), 1.0)):
         return EighResult(theta, vecs if device_vectors
-                          else vecs.cpu().numpy(), nmv, True)
+                          else to_host(vecs), nmv, True)
     # full-f64 polish at the caller's tolerance, from the refined ground
     # vector; ncv shrinks to what an f64 basis can afford in 60% of the
     # card (the restart rotates the basis in place, so the basis and a
@@ -743,13 +759,16 @@ def _mixed(eigh, apply32, apply64, dim, neigen, ncv, maxiter, tol, v0,
     # its ground state to the floor)
     global f64_fallbacks
     f64_fallbacks += 1
-    ncv_fb = min(ncv, max(neigen + 2, int(budget_bytes(
-        _device_of(op64), 0.6) / (dim * _itemsize(hi))) - 1))
-    v0_64 = vecs[0].cpu().numpy()
-    del vecs
-    res64 = eigh(apply64, dim, neigen=neigen, ncv=ncv_fb, maxiter=maxiter,
-                 tol=max(tol, _f64_dot_floor()), v0=v0_64, seed=seed,
-                 dtype=hi, op=op64, device_vectors=device_vectors)
+    count("lanczos.f64_resolves")
+    with span("lanczos.f64_resolve"):
+        ncv_fb = min(ncv, max(neigen + 2, int(budget_bytes(
+            _device_of(op64), 0.6) / (dim * _itemsize(hi))) - 1))
+        v0_64 = to_host(vecs[0])
+        del vecs
+        res64 = eigh(apply64, dim, neigen=neigen, ncv=ncv_fb,
+                     maxiter=maxiter, tol=max(tol, _f64_dot_floor()),
+                     v0=v0_64, seed=seed, dtype=hi, op=op64,
+                     device_vectors=device_vectors)
     return EighResult(res64.eigenvalues, res64.eigenvectors,
                       nmv + res64.iterations, res64.converged)
 
@@ -805,12 +824,14 @@ def _mixed_batched(eigh_b, apply32, apply64, nbatch, dim, neigen, ncv,
         op64 = op64()
     vecs32 = torch.stack([r.eigenvectors for r in res32])   # [B, ne, dim]
     rtol = _mixed_vec_rtol(vec_rtol)
-    theta, vecs, resid = rayleigh_refine_real_batched(
-        apply64, vecs32, neigen, op64=op64, rtol=rtol)
+    with span("lanczos.refine"):
+        theta, vecs, resid = rayleigh_refine_real_batched(
+            apply64, vecs32, neigen, op64=op64, rtol=rtol)
     okm = np.all(resid <= rtol * np.maximum(np.abs(theta), 1.0), axis=1)
     global f64_fallbacks
     if fallback64 is not None:
         f64_fallbacks += int(np.count_nonzero(~okm))
+        count("lanczos.f64_resolves", int(np.count_nonzero(~okm)))
     out = []
     for i in range(nbatch):
         nmv = res32[i].iterations + vecs32.shape[1]
@@ -865,7 +886,8 @@ def lanczos_eigh_mixed_split_batched(apply32, apply64, nbatch: int,
 def dense_eigh(h: np.ndarray, neigen: Optional[int] = None):
     """LAPACK path for dim <= lanc_dim_threshold; returns all or the first
     ``neigen`` pairs (vectors as rows)."""
-    w, v = np.linalg.eigh(h)
+    with span("lanczos.host_eigh", n=len(h)):
+        w, v = np.linalg.eigh(h)
     if neigen is not None:
         w, v = w[:neigen], v[:, :neigen]
     return w, v.T
@@ -877,8 +899,9 @@ def tridiag_eigh(alphas: np.ndarray, betas: np.ndarray):
     m = len(alphas)
     if m == 0:
         return np.zeros(0), np.zeros(0)
-    t = np.diag(alphas)
-    if m > 1:
-        t += np.diag(betas, 1) + np.diag(betas, -1)
-    w, z = np.linalg.eigh(t)
+    with span("lanczos.host_eigh", n=m):
+        t = np.diag(alphas)
+        if m > 1:
+            t += np.diag(betas, 1) + np.diag(betas, -1)
+        w, z = np.linalg.eigh(t)
     return w, z[0, :]

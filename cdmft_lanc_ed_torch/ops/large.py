@@ -40,6 +40,7 @@ import torch
 
 from .. import build
 from ..device import resolve_device
+from ..utils.timer import span
 from .sector_ham import EllMatrix, SectorOperator
 from .split import (_PAD_DIAG, complex_dtype, embed_real, extract_real,
                     op_is_real, real_dtype)
@@ -384,49 +385,50 @@ def _build(cls, op: SectorOperator, real: bool, dtype, reuse, device):
     the block indices, the nonzero structures and the nd arrays of a
     same-shape operator (at Ns=16 the padded f64 diagonal alone is
     1.34 GB).  ``device=None`` is the card."""
-    device = resolve_device(device)
-    vdt = torch.float32 if dtype == torch.bfloat16 else real_dtype(dtype)
-    tdt = dtype if real else complex_dtype(vdt)
-    np_dtype = np.float64 if vdt == torch.float64 else np.float32
-    fu = block_factor_of(op.h_up, real=real, dtype=np_dtype)
-    fd = block_factor_of(op.h_dw, real=real, dtype=np_dtype)
-    dup, ddp = fu.nb * B, fd.nb * B
+    with span("large.build", dtype=str(dtype)):
+        device = resolve_device(device)
+        vdt = torch.float32 if dtype == torch.bfloat16 else real_dtype(dtype)
+        tdt = dtype if real else complex_dtype(vdt)
+        np_dtype = np.float64 if vdt == torch.float64 else np.float32
+        fu = block_factor_of(op.h_up, real=real, dtype=np_dtype)
+        fd = block_factor_of(op.h_dw, real=real, dtype=np_dtype)
+        dup, ddp = fu.nb * B, fd.nb * B
 
-    def tiles(f):
-        if not real and dtype == torch.bfloat16:
-            # complex128 host tiles rounded once, straight to bf16 pairs
-            return torch.view_as_real(torch.as_tensor(f.tiles)).to(
-                device=device, dtype=torch.bfloat16).contiguous()
-        return torch.as_tensor(f.tiles).to(device=device, dtype=tdt)
+        def tiles(f):
+            if not real and dtype == torch.bfloat16:
+                # complex128 host tiles rounded once, straight to bf16 pairs
+                return torch.view_as_real(torch.as_tensor(f.tiles)).to(
+                    device=device, dtype=torch.bfloat16).contiguous()
+            return torch.as_tensor(f.tiles).to(device=device, dtype=tdt)
 
-    dw_tiles, up_tiles = tiles(fd), tiles(fu)
-    if reuse is not None:
-        kw = {k: getattr(reuse, k) for k in (
-            "diag", "dw_rb", "dw_cb", "dw_nz", "up_rb", "up_cb", "up_nz",
-            "nd_amp", "nd_up_src", "nd_up_sgn", "nd_dw_src", "nd_dw_sgn")}
-        return cls(dw_tiles=dw_tiles, up_tiles=up_tiles,
-                   dw_idx=blk_compact(dw_tiles, reuse.dw_nz),
-                   up_idx=blk_compact(up_tiles, reuse.up_nz), **kw)
-    amp, us, ug, ds, dg = _nd_maps(op, dup, ddp)
+        dw_tiles, up_tiles = tiles(fd), tiles(fu)
+        if reuse is not None:
+            kw = {k: getattr(reuse, k) for k in (
+                "diag", "dw_rb", "dw_cb", "dw_nz", "up_rb", "up_cb", "up_nz",
+                "nd_amp", "nd_up_src", "nd_up_sgn", "nd_dw_src", "nd_dw_sgn")}
+            return cls(dw_tiles=dw_tiles, up_tiles=up_tiles,
+                       dw_idx=blk_compact(dw_tiles, reuse.dw_nz),
+                       up_idx=blk_compact(up_tiles, reuse.up_nz), **kw)
+        amp, us, ug, ds, dg = _nd_maps(op, dup, ddp)
 
-    def ints(a, dt=torch.int32):
-        return torch.as_tensor(a).to(device=device, dtype=dt)
+        def ints(a, dt=torch.int32):
+            return torch.as_tensor(a).to(device=device, dtype=dt)
 
-    dw_rb, dw_cb = ints(fd.row_blk), ints(fd.col_blk)
-    up_rb, up_cb = ints(fu.row_blk), ints(fu.col_blk)
-    dw_nz = blk_structure(dw_rb, dw_cb, dw_tiles, fd.nb)
-    up_nz = blk_structure(up_rb, up_cb, up_tiles, fu.nb)
-    return cls(
-        diag=_padded_diag(op, ddp, dup, vdt, device),
-        dw_rb=dw_rb, dw_cb=dw_cb, dw_tiles=dw_tiles, dw_nz=dw_nz,
-        dw_idx=blk_compact(dw_tiles, dw_nz),
-        up_rb=up_rb, up_cb=up_cb, up_tiles=up_tiles, up_nz=up_nz,
-        up_idx=blk_compact(up_tiles, up_nz),
-        nd_amp=torch.as_tensor(amp.real if real else amp.astype(
-            np.complex128)).to(device=device, dtype=tdt if real else
-                               complex_dtype(vdt)),
-        nd_up_src=ints(us, torch.long), nd_up_sgn=ints(ug, torch.int8),
-        nd_dw_src=ints(ds, torch.long), nd_dw_sgn=ints(dg, torch.int8))
+        dw_rb, dw_cb = ints(fd.row_blk), ints(fd.col_blk)
+        up_rb, up_cb = ints(fu.row_blk), ints(fu.col_blk)
+        dw_nz = blk_structure(dw_rb, dw_cb, dw_tiles, fd.nb)
+        up_nz = blk_structure(up_rb, up_cb, up_tiles, fu.nb)
+        return cls(
+            diag=_padded_diag(op, ddp, dup, vdt, device),
+            dw_rb=dw_rb, dw_cb=dw_cb, dw_tiles=dw_tiles, dw_nz=dw_nz,
+            dw_idx=blk_compact(dw_tiles, dw_nz),
+            up_rb=up_rb, up_cb=up_cb, up_tiles=up_tiles, up_nz=up_nz,
+            up_idx=blk_compact(up_tiles, up_nz),
+            nd_amp=torch.as_tensor(amp.real if real else amp.astype(
+                np.complex128)).to(device=device, dtype=tdt if real else
+                                   complex_dtype(vdt)),
+            nd_up_src=ints(us, torch.long), nd_up_sgn=ints(ug, torch.int8),
+            nd_dw_src=ints(ds, torch.long), nd_dw_sgn=ints(dg, torch.int8))
 
 
 def to_device_large_real(op: SectorOperator, dtype=torch.float32,

@@ -36,6 +36,7 @@ import numpy as np
 
 from ..config import EDConfig
 from ..utils import fock
+from ..utils.timer import span
 
 
 # ---------------------------------------------------------------------------
@@ -276,108 +277,112 @@ def build_sector_operator(cfg: EDConfig, imp_hloc: np.ndarray,
     diag_hybr : [Nlat,Nspin,Norb,Nbath] real hybridisation amplitudes
         (ED_HAMILTONIAN_SPARSE_HxV.f90:63-75)
     """
-    ns, nimp = cfg.ns, cfg.nimp
-    nlat, norb, nbath = cfg.nlat, cfg.norb, cfg.nbath
-    uloc = cfg.uloc_arr
-    ust, jh_ = cfg.ust, cfg.jh
+    with span("sector.build", sector=(nup, ndw)):
+        ns, nimp = cfg.ns, cfg.nimp
+        nlat, norb, nbath = cfg.nlat, cfg.norb, cfg.nbath
+        uloc = cfg.uloc_arr
+        ust, jh_ = cfg.ust, cfg.jh
 
-    states_up = fock.sector_states(ns, nup)
-    states_dw = fock.sector_states(ns, ndw)
-    dim_up, dim_dw = len(states_up), len(states_dw)
+        states_up = fock.sector_states(ns, nup)
+        states_dw = fock.sector_states(ns, ndw)
+        dim_up, dim_dw = len(states_up), len(states_dw)
 
-    # --- per-spin diagonal fields over all Ns levels -------------------
-    # (H_local.f90:20-28 impurity local + xmu; :83-93 bath diagonal)
-    def spin_field(s_idx: int) -> np.ndarray:
-        e = np.zeros(ns)
+        # --- per-spin diagonal fields over all Ns levels -------------------
+        # (H_local.f90:20-28 impurity local + xmu; :83-93 bath diagonal)
+        def spin_field(s_idx: int) -> np.ndarray:
+            e = np.zeros(ns)
+            for ilat in range(nlat):
+                for iorb in range(norb):
+                    il = fock.imp_level(ilat, iorb, norb)
+                    e[il] = imp_hloc[ilat, ilat, s_idx, s_idx, iorb,
+                                     iorb].real - cfg.xmu
+                    if cfg.hfmode:
+                        # Hartree shifts (H_local.f90:62-80)
+                        e[il] += -0.5 * uloc[iorb] \
+                            - 0.5 * (ust + (ust - jh_)) * (norb - 1)
+                    for ibath in range(nbath):
+                        bl = fock.bath_level(ilat, iorb, ibath, nlat, norb)
+                        e[bl] = hbath_rec[ibath, ilat, ilat, s_idx, s_idx,
+                                          iorb, iorb].real
+            return e
+
+        e_up = spin_field(0)
+        e_dw = spin_field(cfg.nspin - 1)
+
+        # occupations of impurity levels per sector state
+        imp_levels = np.arange(nimp)
+        n_up_full = fock.number_op(states_up, np.arange(ns))
+        n_dw_full = fock.number_op(states_dw, np.arange(ns))
+        n_up = n_up_full[:, :nimp]
+        n_dw = n_dw_full[:, :nimp]
+
+        # same-spin density-density: Σ_site Σ_{i<j} (Ust-Jh) n_i n_j
+        # (H_local.f90:51-60)
+        w_ss = np.zeros((nimp, nimp))
+        w_ud = np.zeros((nimp, nimp))
         for ilat in range(nlat):
             for iorb in range(norb):
-                il = fock.imp_level(ilat, iorb, norb)
-                e[il] = imp_hloc[ilat, ilat, s_idx, s_idx, iorb, iorb].real \
-                    - cfg.xmu
-                if cfg.hfmode:
-                    # Hartree shifts (H_local.f90:62-80)
-                    e[il] += -0.5 * uloc[iorb] \
-                        - 0.5 * (ust + (ust - jh_)) * (norb - 1)
-                for ibath in range(nbath):
-                    bl = fock.bath_level(ilat, iorb, ibath, nlat, norb)
-                    e[bl] = hbath_rec[ibath, ilat, ilat, s_idx, s_idx,
-                                      iorb, iorb].real
-        return e
-
-    e_up = spin_field(0)
-    e_dw = spin_field(cfg.nspin - 1)
-
-    # occupations of impurity levels per sector state
-    imp_levels = np.arange(nimp)
-    n_up_full = fock.number_op(states_up, np.arange(ns))
-    n_dw_full = fock.number_op(states_dw, np.arange(ns))
-    n_up = n_up_full[:, :nimp]
-    n_dw = n_dw_full[:, :nimp]
-
-    # same-spin density-density: Σ_site Σ_{i<j} (Ust-Jh) n_i n_j
-    # (H_local.f90:51-60)
-    w_ss = np.zeros((nimp, nimp))
-    w_ud = np.zeros((nimp, nimp))
-    for ilat in range(nlat):
-        for iorb in range(norb):
-            a = fock.imp_level(ilat, iorb, norb)
-            w_ud[a, a] = uloc[iorb]           # Uloc n_up n_dw (H_local.f90:35-39)
-            for jorb in range(norb):
-                if jorb == iorb:
-                    continue
-                b = fock.imp_level(ilat, jorb, norb)
-                w_ud[a, b] = ust              # Ust (n_up_i n_dw_j + ...) :44-50
-                w_ss[a, b] = 0.5 * (ust - jh_)  # ordered pairs double-count
-    aup = n_up_full @ e_up + 0.5 * np.einsum(
-        "ua,ab,ub->u", n_up, 2 * w_ss, n_up)
-    adw = n_dw_full @ e_dw + 0.5 * np.einsum(
-        "da,ab,db->d", n_dw, 2 * w_ss, n_dw)
-
-    const = 0.0
-    if cfg.hfmode:
-        npairs = norb * (norb - 1) // 2
-        const = nlat * (0.25 * uloc[:norb].sum()
-                        + npairs * (0.25 * ust + 0.25 * (ust - jh_)))
-
-    # --- hopping blocks ------------------------------------------------
-    h_up = _spin_hop_ell(states_up,
-                         _one_body_terms(cfg, imp_hloc, hbath_rec,
-                                         diag_hybr, spin=0))
-    h_dw = _spin_hop_ell(states_dw,
-                         _one_body_terms(cfg, imp_hloc, hbath_rec,
-                                         diag_hybr, spin=1))
-
-    # --- non-local Jx/Jp terms as Kronecker factors --------------------
-    # (H_non_local.f90:23-98): H_nd = Jx Σ c^+_i c_j |up ⊗ c^+_j c_i |dw
-    #                               + Jp Σ c^+_i c_j |up ⊗ c^+_i c_j |dw
-    nd_terms: List[KronHopTerm] = []
-    if cfg.jhflag:
-        for ilat in range(nlat):
-            for iorb in range(norb):
+                a = fock.imp_level(ilat, iorb, norb)
+                # Uloc n_up n_dw (H_local.f90:35-39)
+                w_ud[a, a] = uloc[iorb]
                 for jorb in range(norb):
-                    if iorb == jorb:
+                    if jorb == iorb:
                         continue
-                    a = fock.imp_level(ilat, iorb, norb)
                     b = fock.imp_level(ilat, jorb, norb)
-                    if cfg.jx != 0.0:
-                        ur, uc, us = fock.hop_entries(states_up, a, b)
-                        dr, dc, ds = fock.hop_entries(states_dw, b, a)
-                        usrc, usgn = _invert_hop(dim_up, ur, uc, us)
-                        dsrc, dsgn = _invert_hop(dim_dw, dr, dc, ds)
-                        nd_terms.append(KronHopTerm(cfg.jx, usrc, usgn,
-                                                    dsrc, dsgn))
-                    if cfg.jp != 0.0:
-                        ur, uc, us = fock.hop_entries(states_up, a, b)
-                        dr, dc, ds = fock.hop_entries(states_dw, a, b)
-                        usrc, usgn = _invert_hop(dim_up, ur, uc, us)
-                        dsrc, dsgn = _invert_hop(dim_dw, dr, dc, ds)
-                        nd_terms.append(KronHopTerm(cfg.jp, usrc, usgn,
-                                                    dsrc, dsgn))
+                    # Ust (n_up_i n_dw_j + ...) :44-50; ordered pairs
+                    # double-count
+                    w_ud[a, b] = ust
+                    w_ss[a, b] = 0.5 * (ust - jh_)
+        aup = n_up_full @ e_up + 0.5 * np.einsum(
+            "ua,ab,ub->u", n_up, 2 * w_ss, n_up)
+        adw = n_dw_full @ e_dw + 0.5 * np.einsum(
+            "da,ab,db->d", n_dw, 2 * w_ss, n_dw)
 
-    return SectorOperator(
-        isector=fock.get_sector(nup, ndw, ns), nup=nup, ndw=ndw,
-        dim_up=dim_up, dim_dw=dim_dw,
-        states_up=states_up, states_dw=states_dw,
-        aup=aup, adw=adw, w_updw=w_ud, n_up=n_up, n_dw=n_dw,
-        diag_const=float(const),
-        h_up=h_up, h_dw=h_dw, nd_terms=nd_terms)
+        const = 0.0
+        if cfg.hfmode:
+            npairs = norb * (norb - 1) // 2
+            const = nlat * (0.25 * uloc[:norb].sum()
+                            + npairs * (0.25 * ust + 0.25 * (ust - jh_)))
+
+        # --- hopping blocks ------------------------------------------------
+        h_up = _spin_hop_ell(states_up,
+                             _one_body_terms(cfg, imp_hloc, hbath_rec,
+                                             diag_hybr, spin=0))
+        h_dw = _spin_hop_ell(states_dw,
+                             _one_body_terms(cfg, imp_hloc, hbath_rec,
+                                             diag_hybr, spin=1))
+
+        # --- non-local Jx/Jp terms as Kronecker factors --------------------
+        # (H_non_local.f90:23-98): H_nd = Jx Σ c^+_i c_j |up ⊗ c^+_j c_i |dw
+        #                               + Jp Σ c^+_i c_j |up ⊗ c^+_i c_j |dw
+        nd_terms: List[KronHopTerm] = []
+        if cfg.jhflag:
+            for ilat in range(nlat):
+                for iorb in range(norb):
+                    for jorb in range(norb):
+                        if iorb == jorb:
+                            continue
+                        a = fock.imp_level(ilat, iorb, norb)
+                        b = fock.imp_level(ilat, jorb, norb)
+                        if cfg.jx != 0.0:
+                            ur, uc, us = fock.hop_entries(states_up, a, b)
+                            dr, dc, ds = fock.hop_entries(states_dw, b, a)
+                            usrc, usgn = _invert_hop(dim_up, ur, uc, us)
+                            dsrc, dsgn = _invert_hop(dim_dw, dr, dc, ds)
+                            nd_terms.append(KronHopTerm(cfg.jx, usrc, usgn,
+                                                        dsrc, dsgn))
+                        if cfg.jp != 0.0:
+                            ur, uc, us = fock.hop_entries(states_up, a, b)
+                            dr, dc, ds = fock.hop_entries(states_dw, a, b)
+                            usrc, usgn = _invert_hop(dim_up, ur, uc, us)
+                            dsrc, dsgn = _invert_hop(dim_dw, dr, dc, ds)
+                            nd_terms.append(KronHopTerm(cfg.jp, usrc, usgn,
+                                                        dsrc, dsgn))
+
+        return SectorOperator(
+            isector=fock.get_sector(nup, ndw, ns), nup=nup, ndw=ndw,
+            dim_up=dim_up, dim_dw=dim_dw,
+            states_up=states_up, states_dw=states_dw,
+            aup=aup, adw=adw, w_updw=w_ud, n_up=n_up, n_dw=n_dw,
+            diag_const=float(const),
+            h_up=h_up, h_dw=h_dw, nd_terms=nd_terms)

@@ -118,6 +118,12 @@ class EDSolver:
     # -- solve (ed_solve, ED_MAIN.f90:195-282) --------------------------
     def solve(self, bath_array, hloc_nnn: np.ndarray) -> None:
         cfg = self.cfg
+        timers = Timers(self.verbose_log if cfg.ed_verbose >= 3 else None)
+        with timers.active():
+            self._solve(timers, bath_array, hloc_nnn)
+
+    def _solve(self, timers: Timers, bath_array, hloc_nnn) -> None:
+        cfg = self.cfg
         assert_nnn_shape(np.asarray(hloc_nnn), cfg.nlat, cfg.nspin, cfg.norb,
                          "Hloc")
         self.imp_hloc = np.asarray(hloc_nnn, dtype=np.complex128)
@@ -129,8 +135,6 @@ class EDSolver:
             cfg.work_dir, cfg.hfile + cfg.ed_file_suffix + ".used"))
         if self.diag_state is None:
             self.diag_state = DiagState(cfg)
-
-        timers = Timers(self.verbose_log if cfg.ed_verbose >= 3 else None)
         self.timers = timers
 
         build = self._sector_builder()
@@ -143,10 +147,12 @@ class EDSolver:
 
         if cfg.gf_flag:
             with timers("greens_functions"):
-                self.gf = build_gf_and_sigma(cfg, self.hb, self.bath,
-                                             self.imp_hloc, self.diag_state,
-                                             build, self.device,
-                                             log=self.verbose_log)
+                gf = build_gf_and_sigma(cfg, self.hb, self.bath,
+                                        self.imp_hloc, self.diag_state,
+                                        build, self.device,
+                                        log=self.verbose_log)
+            # the previous solve's result is released outside the stage
+            self.gf = gf
         with timers("observables"):
             self.obs = observables_impurity(cfg, self.diag_state)
             self.energy = local_energy_impurity(cfg, self.imp_hloc,
