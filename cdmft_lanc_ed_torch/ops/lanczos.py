@@ -39,6 +39,7 @@ import torch.distributed as dist
 
 from ..device import budget_bytes
 from ..utils.timer import count, span, to_host
+from . import chain
 from .split import complex_dtype, real_dtype
 
 
@@ -130,10 +131,13 @@ def _tridiag(apply_fn, v0, niter: int, op, dtype):
             device=device, dtype=dtype)
     nb = v.shape[0]
     rdtype = real_dtype(dtype)
-    p = torch.zeros_like(v)
-    beta_prev = torch.zeros(nb, dtype=rdtype, device=device)
     alphas = torch.empty(niter, nb, dtype=rdtype, device=device)
     betas = torch.empty(niter, nb, dtype=rdtype, device=device)
+    if v.is_cuda:
+        _tridiag_fused(apply_fn, v, op, group, alphas, betas)
+        return (to_host(alphas.T), to_host(betas.T)[:, : niter - 1], norms0)
+    p = torch.zeros_like(v)
+    beta_prev = torch.zeros(nb, dtype=rdtype, device=device)
     for it in range(niter):
         w = apply_fn(op, v)
         alpha = _allsum((v.conj() * w).sum(dim=1).real, group)  # Re <v|Hv>
@@ -147,6 +151,28 @@ def _tridiag(apply_fn, v0, niter: int, op, dtype):
         betas[it] = beta
     count("gf.steps", niter)
     return (to_host(alphas.T), to_host(betas.T)[:, : niter - 1], norms0)
+
+
+def _tridiag_fused(apply_fn, v, op, group, alphas, betas) -> None:
+    """The chain steps of :func:`_tridiag` on the card: after each H·v the
+    recurrence runs as the three launches of :class:`.chain.Chain`, which
+    write ``alphas[it]`` and ``betas[it]`` in place and turn the
+    applier's output ``w`` into the next vector; a sharded chain sums α
+    and ‖w‖² over the group between them.  The buffers rotate (p ← v,
+    v ← w) without a copy, and the first step reads no p."""
+    ch = chain.Chain(v)
+    p = None
+    niter = alphas.shape[0]
+    for it in range(niter):
+        w = apply_fn(op, v).contiguous()
+        ch.dot(v, w, alphas[it])
+        _allsum(alphas[it], group)          # in place: a row is contiguous
+        ch.update(w, v, p, alphas[it], betas[it - 1] if it else None)
+        _allsum(ch.sq, group)
+        ch.scale(w, betas[it])
+        p, v = v, w
+    count("gf.steps", niter)
+    count("gf.fused_steps", niter)
 
 
 def lanczos_tridiag_batched_real(apply_fn, v0: np.ndarray, niter: int,

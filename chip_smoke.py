@@ -30,6 +30,12 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  library_ms; the block-sparse ones also the bound with
                  the factor read in the kernel's compact form
                  (compact_bound_ms) beside the dense-tile bound.
+3c. chain_kernel - the GF chain step's kernel set (chain_dot, chain_update,
+                 chain_scale) against the torch step it replaced, in f64 at
+                 the Ns=16 (9,8) target's padded vector (B = 1) and at the
+                 Ns=12 (7,6) target's bucket with B = 16: alpha, beta and
+                 the next vector to 1e-13; timed beside its bound (8 passes
+                 at the peak bandwidth) and the torch step.
 4. plaquette   - bath-less U=4 half-filled 2x2 plaquette: EGS
                  -6.1027484835, dens 1, docc ~0.0718.
 5. loop        - the metric-2 CDMFT loop (2x2 plaquette + 2 replica baths,
@@ -1502,6 +1508,86 @@ def phase_large_kernel(peaks):
                 and r["type"] == "f32"), (bop, solver.cfg)
 
 
+# The GF chain step's shapes: the Ns=16 (9,8) target's padded vector
+# (11,520 x 12,928) at B = 1, the rows its chains run at, and the Ns=12
+# (7,6) target's bucket (1024 x 1024) at B = 16, the plaquette's 4 + 12
+# injections in one chain batch.
+CHAIN_SHAPES = (("ns16_98_b1", 1, 11520 * 12928),
+                ("ns12_76_b16", 16, 1024 * 1024))
+CHAIN_PASSES = 8     # read v, w; read w, v, p and write w; read, write w
+CHAIN_TOL = 1e-13
+
+
+def phase_chain_kernel(peaks):
+    """The GF chain step's kernel set (``ops/chain.py``) against the
+    torch expressions it replaced, in f64 at the chains' shapes: one step
+    checked (alpha within 1e-13 of |v| |w|, beta and the next vector
+    within 1e-13 of their largest entry), then the three launches timed
+    beside their bound (8 passes over B x dim f64 at the peak bandwidth)
+    and the torch step (the plain column).  Returns the Ns=16 record."""
+    import torch
+    from cdmft_lanc_ed_torch.ops import chain
+    t0 = time.time()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    records = []
+    for name, nb, dim in CHAIN_SHAPES:
+        def rnd():
+            return torch.randn(nb, dim, generator=gen, device=dev,
+                               dtype=torch.float64)
+        v, w, p = rnd(), rnd(), rnd()
+        v /= torch.linalg.vector_norm(v, dim=1, keepdim=True)
+        p /= torch.linalg.vector_norm(p, dim=1, keepdim=True)
+        beta_prev = torch.rand(nb, generator=gen, device=dev,
+                               dtype=torch.float64) + 0.5
+
+        def plain(w):
+            alpha = (v.conj() * w).sum(dim=1).real
+            w = w - alpha[:, None] * v - beta_prev[:, None] * p
+            beta = torch.linalg.vector_norm(w, dim=1)
+            good = (beta > 1e-200)[:, None]
+            nxt = torch.where(good, w / beta.clamp_min(1e-300)[:, None],
+                              torch.zeros_like(w))
+            return alpha, beta, nxt
+
+        ch = chain.Chain(v)
+        alpha = torch.empty(nb, dtype=torch.float64, device=dev)
+        beta = torch.empty(nb, dtype=torch.float64, device=dev)
+
+        def kernel(w):
+            ch.dot(v, w, alpha)
+            ch.update(w, v, p, alpha, beta_prev)
+            ch.scale(w, beta)
+
+        wk = w.clone()
+        kernel(wk)
+        a_ref, b_ref, nxt = plain(w)
+        scale_a = torch.linalg.vector_norm(w, dim=1)   # |v| = 1
+        err = {"alpha": float(((alpha - a_ref).abs() / scale_a).max()),
+               "beta": float((beta - b_ref).abs().max() / b_ref.max()),
+               "next": float((wk - nxt).abs().max() / nxt.abs().max())}
+        del a_ref, b_ref, nxt
+        ms = time_ms(lambda: kernel(wk))
+        plain_ms = time_ms(lambda: plain(w), reps=5, warmup=1)
+        bound_ms = CHAIN_PASSES * nb * dim * 8 / peaks[1] * 1e3
+        records.append({"case": name, "type": "f64", "B": nb, "dim": dim,
+                        "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": "bytes",
+                        "share": bound_ms / ms, "plain_ratio": ms / plain_ms,
+                        "launches_per_step": 3, "err": err,
+                        "ok": max(err.values()) <= CHAIN_TOL})
+        del v, w, p, wk, ch
+        torch.cuda.empty_cache()
+    emit({"phase": "chain_kernel", "seconds": time.time() - t0,
+          "tolerance": "alpha: |kernel - plain| <= 1e-13 |v| |w|; beta, "
+                       "next vector: max|kernel - plain| <= 1e-13 "
+                       "max|plain|", "records": records})
+    if not all(r["ok"] for r in records):
+        fail("chain_kernel", "the chain step's kernels disagree with the "
+                             "torch step")
+    return records[0]
+
+
 def profile_gf_steps(dev64, v0, steps=GF_PROFILE_STEPS, warmup=2):
     """Time and trace ``steps`` f64 GF chain steps of the large kit (the
     Lanczos recurrence of gf.py's large chains, one injection, the batched
@@ -1568,13 +1654,14 @@ def phase_large_solve(workdir, profile=False):
     (8,8) sector by the reference's own mechanism; with ``profile``, also
     a trace of a few GF chain steps."""
     import torch
-    from cdmft_lanc_ed_torch.ops import fused, large, lanczos
+    from cdmft_lanc_ed_torch.ops import chain, fused, large, lanczos
     solver, bath, hloc = flagship_solver(
         workdir, ed_precision="mixed", ed_gf_precision=NS16_GF_PRECISION,
         ed_sectors=True, ed_sectors_shift=0, ed_verbose=3)
     with open(f"{workdir}/sectors_list.restart", "w") as fh:
         fh.write(" %d %d\n" % NS16_SECTOR)
     fused.launches = fused.pair_launches = large.launches = 0
+    chain.launches = 0
     large.launches_by.clear()
     lanczos.f64_fallbacks = 0
     torch.cuda.synchronize()
@@ -1585,6 +1672,7 @@ def phase_large_solve(workdir, profile=False):
     wall = time.time() - t0
     launches = large.launches
     by_type = dict(large.launches_by)
+    chain_launches = chain.launches
     peak = torch.cuda.max_memory_allocated()
     fallbacks = lanczos.f64_fallbacks
     st = solver.diag_state.state_list[0]
@@ -1621,6 +1709,7 @@ def phase_large_solve(workdir, profile=False):
           "blk_spmm_launches": launches, "launches_by_type": by_type,
           "matvecs_by_type": {k: v / 2 for k, v in by_type.items()},
           "fused_launches": fused.launches + fused.pair_launches,
+          "chain_launches": chain_launches,
           "f64_fallbacks": fallbacks,
           "max_memory_allocated_gb": peak / 1e9,
           "profiled_gf_step_s": step_s,
@@ -1629,7 +1718,7 @@ def phase_large_solve(workdir, profile=False):
           "checks": checks})
     if not all(checks.values()):
         fail("large_solve", f"checks failed: {checks}")
-    return launches, gm
+    return launches, gm, chain_launches
 
 
 def phase_large_pair_solve(op, cfg):
@@ -2027,6 +2116,7 @@ def main():
     worst, timing = phase_kernel(peaks)
     pair_worst, pair_timing = phase_pair_kernel(peaks)
     blk_timing, bhz16 = phase_large_kernel(peaks)
+    chain_timing = phase_chain_kernel(peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         phase_plaquette(wd)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
@@ -2050,7 +2140,8 @@ def main():
         edge_launches, conf, edge = phase_edge_loop(wd, peaks)
         phase_edge_post(conf, edge)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-        blk_launches, g_ns16 = phase_large_solve(wd, args.profile)
+        blk_launches, g_ns16, chain_launches = phase_large_solve(
+            wd, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         mesh_large_launches = phase_mesh_large(wd, g_ns16)
     pair16_launches = phase_large_pair_solve(*bhz16)
@@ -2083,7 +2174,13 @@ def main():
                     "large_pair_solve": pair16_launches,
                     "mesh_solve": mesh["blk_spmm"]},
                    blk_timing["max_abs_err"], blk_timing),
-             types=list(BLK_TOL))],
+             types=list(BLK_TOL)),
+        {"name": "lanczos_chain", "route": "cuda",
+         "source": "cdmft_lanc_ed_torch/csrc/lanczos_chain.cu",
+         "replaces": None, "launches": chain_launches,
+         "launches_by_path": {"large_solve": chain_launches},
+         **{k: chain_timing[k] for k in ("case", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "err")}}],
         "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
