@@ -43,7 +43,7 @@ from .ops import large, lanczos, split
 from .parallel import multichip, sharded_large
 from .utils import fock
 from .utils.reshape import lso2nnn, nnn2lso
-from .utils.timer import span, to_host
+from .utils.timer import count, span, to_host
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +274,10 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
     # injection that targets the same (jnup, jndw) sector, from any
     # retained state, runs in ONE batched tridiagonalisation ---
     jobs: Dict[Tuple[int, int, bool], list] = {}
+    # rows of one (state, spin, create): nimp diagonal, nimp (nimp - 1)
+    # (a + b) pairs, as many (a ± i b) pairs with chan4
+    nchan4 = nimp * (nimp - 1) if chan4 else 0
+    nrows = nimp * nimp + nchan4
     for istate, st in enumerate(state.state_list):
         nup, ndw = fock.get_quantum_numbers(st.isector, ns)
         ei = st.energy
@@ -284,44 +288,48 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
         v2d = (vec if on_dev else np.asarray(vec)).reshape(dim_dw, dim_up)
         for ispin in range(cfg.nspin):
             for create in (True, False):
-                base, (jnup, jndw) = base_excitations(
-                    cfg, v2d, nup, ndw, ispin, create)
-                if base is None:
-                    continue
-                isign = +1 if create else -1
-                # injection recipe (a, b, ph): c_a, c_a + c_b, and (chan4)
-                # c_a + ph c_b with ph = +i (add) / -i (del), reference
-                # ED_GF_NORMAL.f90:584-660
-                recipe = [(a, None, None) for a in range(nimp)]
-                meta = [((a, a), 1.0 + 0j, istate, ei, isign, ispin)
-                        for a in range(nimp)]
-                for a in range(nimp):
-                    for b in range(nimp):
-                        if a == b:
-                            continue
-                        recipe.append((a, b, None))
-                        meta.append(((a, b), 1.0 + 0j, istate, ei, isign,
-                                     ispin))
-                        if chan4:
-                            recipe.append((a, b, 1j if create else -1j))
-                            meta.append(((a, b), -1j, istate, ei, isign,
-                                         ispin))
-                rows = _Injections(base, recipe)
-                if on_dev and large_sector(ns, jnup, jndw):
-                    # built on the card, chunk by chunk
-                    is_real = not (base.is_complex() or chan4)
+                with span("gf.inject", rows=nrows, chan4=chan4,
+                          on_dev=on_dev):
+                    base, (jnup, jndw) = base_excitations(
+                        cfg, v2d, nup, ndw, ispin, create)
+                    if base is None:
+                        continue
+                    isign = +1 if create else -1
+                    # injection recipe (a, b, ph): c_a, c_a + c_b, and
+                    # (chan4) c_a + ph c_b with ph = +i (add) / -i (del),
+                    # reference ED_GF_NORMAL.f90:584-660
+                    recipe = [(a, None, None) for a in range(nimp)]
+                    meta = [((a, a), 1.0 + 0j, istate, ei, isign, ispin)
+                            for a in range(nimp)]
+                    for a in range(nimp):
+                        for b in range(nimp):
+                            if a == b:
+                                continue
+                            recipe.append((a, b, None))
+                            meta.append(((a, b), 1.0 + 0j, istate, ei,
+                                         isign, ispin))
+                            if chan4:
+                                recipe.append((a, b, 1j if create else -1j))
+                                meta.append(((a, b), -1j, istate, ei, isign,
+                                             ispin))
+                    count("gf.injections", nrows)
+                    count("gf.injections.chan4", nchan4)
+                    rows = _Injections(base, recipe)
+                    if on_dev and large_sector(ns, jnup, jndw):
+                        # built on the card, chunk by chunk
+                        is_real = not (base.is_complex() or chan4)
+                        jobs.setdefault((jnup, jndw, is_real), []).append(
+                            (rows, meta))
+                        continue
+                    stacked = rows.take(0, len(recipe))
+                    if on_dev:
+                        stacked = to_host(stacked)
+                    is_real = not (np.iscomplexobj(stacked)
+                                   and np.abs(stacked.imag).max() > 0.0)
+                    if is_real:
+                        stacked = np.real(stacked)
                     jobs.setdefault((jnup, jndw, is_real), []).append(
-                        (rows, meta))
-                    continue
-                stacked = rows.take(0, len(recipe))
-                if on_dev:
-                    stacked = to_host(stacked)
-                is_real = not (np.iscomplexobj(stacked)
-                               and np.abs(stacked.imag).max() > 0.0)
-                if is_real:
-                    stacked = np.real(stacked)
-                jobs.setdefault((jnup, jndw, is_real), []).append(
-                    (stacked, meta))
+                        (stacked, meta))
 
     # --- one batched tridiagonalisation per target-sector group ---------
     for (jnup, jndw, is_real), entries in jobs.items():
