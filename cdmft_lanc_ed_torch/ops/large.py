@@ -27,8 +27,10 @@ run as one real product).  The padding contract (+1e6 decoupled diagonal
 modes) and the (dev, dim_p, embed, extract) kit interface are those of
 ``ops/split.py``, so the eigensolvers and the GF stage use the kits as
 they use the dense ones.  Embedding and extraction keep device tensors on
-the device.  Matvecs add into their output in place, to hold fewer
-full-size temporaries at Ns=16 (one f64 vector there is 1.34 GB).
+the device.  Around the two SpMMs of an H·v, the transposed copy of x and
+the sum of the diagonal term and both products are the two kernels of
+``csrc/large_glue.cu`` (:mod:`.glue`); the H·v frees each temporary as
+soon as it can, since at Ns=16 one f64 vector is 1.34 GB.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ import torch
 
 from .. import build
 from ..device import resolve_device
-from ..utils.timer import span
+from ..utils.timer import count, span
+from . import glue
 from .sector_ham import EllMatrix, SectorOperator
 from .split import (_PAD_DIAG, complex_dtype, embed_real, extract_real,
                     op_is_real, real_dtype)
@@ -494,17 +497,36 @@ def _nd_apply(x: torch.Tensor, xt: torch.Tensor, op: LargeRealOp
     return out
 
 
-def matvec_large_real(op: LargeRealOp, x: torch.Tensor) -> torch.Tensor:
-    """H·x for x [Ddp, Dup]: two block-sparse SpMMs (dw in the natural
-    layout, up in the transposed one) and the diagonal.  ``op`` may be a
-    :class:`LargePairOp` (complex tiles) and x real or complex."""
-    out = op.diag * x
-    out += _dw(op, x)
-    xt = x.T.contiguous()
-    out += _up(op, xt).T
-    if op.nd_amp.shape[0]:
-        out += _nd_apply(x, xt, op)
+def _apply(op: LargeRealOp, x3: torch.Tensor) -> torch.Tensor:
+    """H·x for a batch x3 [bb, ddp, dup], the batch folded into the SpMM
+    width: the glue of :mod:`.glue` around two block-sparse SpMMs (dw in
+    the natural layout, up in the transposed one), then the Jx/Jp terms.
+    At most three vectors besides x are alive at once (four with Jx/Jp
+    terms, whose gathers read xt)."""
+    x3 = x3.resolve_conj().contiguous()
+    bb, ddp, dup = x3.shape
+    xt, xdw = glue.pack(x3)
+    y_up = _up(op, xt)
+    nd = op.nd_amp.shape[0] > 0
+    if not nd:
+        del xt
+    y_dw = _dw(op, xdw)
+    del xdw
+    out = glue.combine(op.diag, x3, y_dw, y_up)
+    del y_dw, y_up
+    if out.is_cuda:
+        count("large.fused_glue")
+    if nd:
+        xt3 = xt.view(dup, ddp, bb)
+        for i in range(bb):
+            out[i] += _nd_apply(x3[i], xt3[:, :, i], op)
     return out
+
+
+def matvec_large_real(op: LargeRealOp, x: torch.Tensor) -> torch.Tensor:
+    """H·x for x [Ddp, Dup].  ``op`` may be a :class:`LargePairOp`
+    (complex tiles) and x real or complex."""
+    return _apply(op, x[None])[0]
 
 
 matvec_large_pair = matvec_large_real
@@ -532,22 +554,8 @@ def apply_large_real_flat_batched(dev: LargeRealOp, x: torch.Tensor
                                   ) -> torch.Tensor:
     """x [Bb, dim_p] -> [Bb, dim_p], the batch folded into the SpMM width
     (one wide SpMM per side instead of Bb narrow ones)."""
-    bb = x.shape[0]
-    ddp, dup = dev.diag.shape
-    x3 = x.reshape(bb, ddp, dup)
-    out = dev.diag[None] * x3
-    # dw side: minor axis = (up, batch)
-    y = _dw(dev, x3.permute(1, 2, 0).reshape(ddp, dup * bb))
-    out += y.reshape(ddp, dup, bb).permute(2, 0, 1)
-    del y
-    # up side: minor axis = (dw, batch)
-    y = _up(dev, x3.permute(2, 1, 0).reshape(dup, ddp * bb))
-    out += y.reshape(dup, ddp, bb).permute(2, 1, 0)
-    del y
-    if dev.nd_amp.shape[0]:
-        for i in range(bb):
-            out[i] += _nd_apply(x3[i], x3[i].T, dev)
-    return out.reshape(bb, -1)
+    return _apply(dev, x.reshape((x.shape[0],) + tuple(dev.diag.shape))
+                  ).reshape(x.shape[0], -1)
 
 
 apply_large_pair_flat_batched = apply_large_real_flat_batched

@@ -36,6 +36,11 @@ Phases, one JSON line each on stdout (any failure exits non-zero):
                  Ns=12 (7,6) target's bucket with B = 16: alpha, beta and
                  the next vector to 1e-13; timed beside its bound (8 passes
                  at the peak bandwidth) and the torch step.
+3d. glue_kernel - the large kits' H·v glue (glue_pack, glue_combine)
+                 against the torch glue it replaced at the Ns=16 (8,8)
+                 grid, bb = 1, in f64 and f32: equal bit for bit
+                 (torch.equal); timed beside its bound (7 passes at the
+                 peak bandwidth) and the torch glue.
 4. plaquette   - bath-less U=4 half-filled 2x2 plaquette: EGS
                  -6.1027484835, dens 1, docc ~0.0718.
 5. loop        - the metric-2 CDMFT loop (2x2 plaquette + 2 replica baths,
@@ -1588,6 +1593,76 @@ def phase_chain_kernel(peaks):
     return records[0]
 
 
+# The large kits' H·v glue at the Ns=16 (8,8) sector's padded grid
+# (12,928 x 12,928) at bb = 1: f64 (the GF chains, the refine) and f32 (the
+# Krylov stage).  Vector passes: pack reads x and writes xt; combine reads
+# diag, x, y_dw and y_up and writes out.
+GLUE_SHAPE = (12928, 12928)
+GLUE_PASSES = {"pack": 2, "combine": 5}
+
+
+def phase_glue_kernel(peaks):
+    """The large kits' H·v glue (``ops/glue.py``) against the torch glue
+    it replaced (``matvec_large_real``'s expressions around its two
+    SpMMs), at the (8,8) grid in f64 and f32: xt and out equal bit for
+    bit, then each kernel and both together timed beside their bounds
+    (passes over one vector at the peak bandwidth) and the torch glue
+    (the plain column).  Returns the f64 record."""
+    import torch
+    from cdmft_lanc_ed_torch.ops import glue
+    t0 = time.time()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2026)
+    ddp, dup = GLUE_SHAPE
+    records = []
+    for dt in (torch.float64, torch.float32):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device=dev, dtype=dt)
+        x3, diag = rnd(1, ddp, dup), rnd(ddp, dup)
+        y_dw, y_up = rnd(ddp, dup), rnd(dup, ddp)
+
+        def kernel():
+            xt, _ = glue.pack(x3)
+            return xt, glue.combine(diag, x3, y_dw, y_up)
+
+        def plain():
+            x = x3[0]
+            out = diag * x
+            out += y_dw
+            xt = x.T.contiguous()
+            out += y_up.T
+            return xt, out
+
+        (kxt, kout), (pxt, pout) = kernel(), plain()
+        equal = {"xt": torch.equal(kxt, pxt), "out": torch.equal(kout[0],
+                                                                 pout)}
+        del kxt, kout, pxt, pout
+        vec_ms = ddp * dup * x3.element_size() / peaks[1] * 1e3
+        ms = {"glue": time_ms(kernel),
+              "pack": time_ms(lambda: glue.pack(x3)),
+              "combine": time_ms(lambda: glue.combine(diag, x3, y_dw, y_up))}
+        bound = {"glue": sum(GLUE_PASSES.values()) * vec_ms,
+                 **{k: n * vec_ms for k, n in GLUE_PASSES.items()}}
+        plain_ms = time_ms(plain, reps=10, warmup=2)
+        records.append({
+            "case": "ns16_88_b1", "type": str(dt).split(".")[-1],
+            "shape": [1, ddp, dup], "ms": ms["glue"], "plain_ms": plain_ms,
+            "bound_ms": bound["glue"], "bound_by": "bytes",
+            "share": bound["glue"] / ms["glue"],
+            "plain_ratio": ms["glue"] / plain_ms,
+            "parts": {k: {"ms": ms[k], "bound_ms": bound[k],
+                          "share": bound[k] / ms[k]} for k in GLUE_PASSES},
+            "equal": equal, "ok": all(equal.values())})
+        del x3, diag, y_dw, y_up
+        torch.cuda.empty_cache()
+    emit({"phase": "glue_kernel", "seconds": time.time() - t0,
+          "tolerance": "xt and out equal to the torch glue's (torch.equal)",
+          "records": records})
+    if not all(r["ok"] for r in records):
+        fail("glue_kernel", "the glue kernels disagree with the torch glue")
+    return records[0]
+
+
 def profile_gf_steps(dev64, v0, steps=GF_PROFILE_STEPS, warmup=2):
     """Time and trace ``steps`` f64 GF chain steps of the large kit (the
     Lanczos recurrence of gf.py's large chains, one injection, the batched
@@ -1654,14 +1729,14 @@ def phase_large_solve(workdir, profile=False):
     (8,8) sector by the reference's own mechanism; with ``profile``, also
     a trace of a few GF chain steps."""
     import torch
-    from cdmft_lanc_ed_torch.ops import chain, fused, large, lanczos
+    from cdmft_lanc_ed_torch.ops import chain, fused, glue, large, lanczos
     solver, bath, hloc = flagship_solver(
         workdir, ed_precision="mixed", ed_gf_precision=NS16_GF_PRECISION,
         ed_sectors=True, ed_sectors_shift=0, ed_verbose=3)
     with open(f"{workdir}/sectors_list.restart", "w") as fh:
         fh.write(" %d %d\n" % NS16_SECTOR)
     fused.launches = fused.pair_launches = large.launches = 0
-    chain.launches = 0
+    chain.launches = glue.launches = 0
     large.launches_by.clear()
     lanczos.f64_fallbacks = 0
     torch.cuda.synchronize()
@@ -1673,6 +1748,8 @@ def phase_large_solve(workdir, profile=False):
     launches = large.launches
     by_type = dict(large.launches_by)
     chain_launches = chain.launches
+    glue_launches = glue.launches
+    fused_glue = solver.timers.counters.get("large.fused_glue", 0)
     peak = torch.cuda.max_memory_allocated()
     fallbacks = lanczos.f64_fallbacks
     st = solver.diag_state.state_list[0]
@@ -1699,6 +1776,7 @@ def phase_large_solve(workdir, profile=False):
         "im_g_negative": bool(np.all(gd.imag < 0)),
         "sigma_finite": bool(np.isfinite(sm).all()),
         "kernel_launched": launches > 0,
+        "glue_every_matvec": 2 * fused_glue == launches == glue_launches,
         "vector_on_card": isinstance(xv, torch.Tensor) and xv.is_cuda}
     emit({"phase": "large_solve", "sector": list(NS16_SECTOR),
           "dim": int(op.dim), "egs": solver.egs, "egs_anchor": E0_NS16,
@@ -1710,6 +1788,7 @@ def phase_large_solve(workdir, profile=False):
           "matvecs_by_type": {k: v / 2 for k, v in by_type.items()},
           "fused_launches": fused.launches + fused.pair_launches,
           "chain_launches": chain_launches,
+          "glue_launches": glue_launches, "fused_glue": fused_glue,
           "f64_fallbacks": fallbacks,
           "max_memory_allocated_gb": peak / 1e9,
           "profiled_gf_step_s": step_s,
@@ -1718,7 +1797,7 @@ def phase_large_solve(workdir, profile=False):
           "checks": checks})
     if not all(checks.values()):
         fail("large_solve", f"checks failed: {checks}")
-    return launches, gm, chain_launches
+    return launches, gm, chain_launches, glue_launches
 
 
 def phase_large_pair_solve(op, cfg):
@@ -2117,6 +2196,7 @@ def main():
     pair_worst, pair_timing = phase_pair_kernel(peaks)
     blk_timing, bhz16 = phase_large_kernel(peaks)
     chain_timing = phase_chain_kernel(peaks)
+    glue_timing = phase_glue_kernel(peaks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         phase_plaquette(wd)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
@@ -2140,8 +2220,8 @@ def main():
         edge_launches, conf, edge = phase_edge_loop(wd, peaks)
         phase_edge_post(conf, edge)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
-        blk_launches, g_ns16, chain_launches = phase_large_solve(
-            wd, args.profile)
+        blk_launches, g_ns16, chain_launches, glue_launches = \
+            phase_large_solve(wd, args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
         mesh_large_launches = phase_mesh_large(wd, g_ns16)
     pair16_launches = phase_large_pair_solve(*bhz16)
@@ -2180,7 +2260,13 @@ def main():
          "replaces": None, "launches": chain_launches,
          "launches_by_path": {"large_solve": chain_launches},
          **{k: chain_timing[k] for k in ("case", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "err")}}],
+                                         "bound_ms", "bound_by", "err")}},
+        {"name": "large_glue", "route": "cuda",
+         "source": "cdmft_lanc_ed_torch/csrc/large_glue.cu",
+         "replaces": None, "launches": glue_launches,
+         "launches_by_path": {"large_solve": glue_launches},
+         **{k: glue_timing[k] for k in ("case", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "equal")}}],
         "seconds": time.time() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
