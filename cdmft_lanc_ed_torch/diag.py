@@ -4,7 +4,8 @@ Port of the JAX package's ``diag.py`` (dense-factor path): loop over all
 (N_up, N_dw) Fock sectors, solve each with the dense path (small dims) or
 the thick-restart Lanczos eigensolver, and keep the retained eigenstates in
 the capacity-constrained :class:`~.eigenspace.StateList`.  Real sectors
-take the real kit, complex ones the complex pair kit.  Same-bucket sectors
+take the real kit, complex ones the complex pair kit (``kit.py`` chooses
+each sector's kit).  Same-bucket sectors
 of one kind are solved as one batch (one device stream, shared restart
 schedule); the rest are solved one by one.  ``ed_precision="mixed"`` runs
 the f32 (complex64) Krylov stage on the fused CUDA H·v and refines in f64
@@ -30,7 +31,7 @@ rank runs the whole sweep (SPMD) and ends with the whole state list.
 """
 from __future__ import annotations
 
-import math
+import contextlib
 import os
 import warnings
 from dataclasses import dataclass, field
@@ -39,11 +40,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import kit
 from .config import EDConfig
 from .device import budget_bytes
 from .eigenspace import StateList
-from .ops import large, lanczos, sector_ham, split
-from .parallel import multichip, sharded_large
+from .ops import lanczos, sector_ham, split
+from .parallel import multichip
 from .utils import fock
 from .utils.timer import span, to_host
 
@@ -138,42 +140,47 @@ class DiagState:
 SectorBuilder = Callable[[int, int], sector_ham.SectorOperator]
 
 
-def is_large(op: sector_ham.SectorOperator) -> bool:
-    """True when a spin factor exceeds the dense-factor limit."""
-    return max(op.dim_up, op.dim_dw) > split.DENSE_FACTOR_MAX
+def _start(dim: int, real: bool, rng=None) -> np.ndarray:
+    """The seeded start vector of a sector of ``dim``: ``rng`` (default
+    ``default_rng(8527)``) draws its real part, then for a complex
+    sector its imaginary part, as the JAX package draws them."""
+    rng = np.random.default_rng(8527) if rng is None else rng
+    return rng.normal(size=dim) if real else \
+        rng.normal(size=dim) + 1j * rng.normal(size=dim)
 
 
-def large_sector(ns: int, nup: int, ndw: int) -> bool:
-    """:func:`is_large` of sector (nup, ndw) without building it."""
-    return max(math.comb(ns, nup), math.comb(ns, ndw)) \
-        > split.DENSE_FACTOR_MAX
-
-
-def _dw_mesh(cfg: EDConfig, dim: int):
-    """The installed mesh when a sector of ``dim`` is solved dw-sharded
-    (a "dw" axis and dim >= 64·lanc_dim_threshold: the JAX package's
-    diag.py:432-437), else None."""
-    mesh = multichip.get_solver_mesh()
-    if multichip.has_axis(mesh, "dw") and \
-            dim >= 64 * cfg.lanc_dim_threshold:
-        return mesh
-    return None
-
-
-def _kit(op: sector_ham.SectorOperator, dtype, device):
-    """(apply_fn, dev, is_real, dim_p, embed, extract): the real kit of a
-    real ``op``, else the complex pair kit; the block-sparse large kits
-    for factors beyond the dense-factor limit."""
-    if is_large(op):
-        dev, real, dim_p, embed, extract = large.build_pair_padded_large(
-            op, dtype=dtype, device=device)
-        return large.apply_large_real_flat, dev, real, dim_p, embed, extract
-    kit = split.build_real_padded(op, dtype=dtype, device=device)
-    if kit is not None:
-        return (split.apply_real_flat, kit[0], True) + tuple(kit[1:])
-    dev, _, dim_p, embed, extract = split.build_pair_padded(
-        op, dtype=dtype, device=device)
-    return split.apply_pair_flat, dev, False, dim_p, embed, extract
+def _eigensolve(cfg: EDConfig, op, device, neigen, ncv, maxiter, *,
+                tol=None, mixed=None, shard_from=None, v0=None,
+                start_span=None):
+    """One sector on its kit (``kit.kit_for``; sharded from
+    ``shard_from``).  ``mixed`` (default: ``ed_precision="mixed"``) runs
+    the bf16 coarse stage where the kit has one, the f32 (complex64)
+    Krylov stage, the f64 (complex128) refine on an operator built after
+    it and the f64 re-solve (``lanczos.eigh_mixed``); else one f64
+    solve, to ``tol`` (default ``lanc_tolerance``).  ``v0`` (the kit's
+    rows) defaults to the seeded start vector, drawn inside
+    ``start_span`` when given.  Returns (the result on the kit's rows,
+    its eigenvectors on the device; the kit)."""
+    if mixed is None:
+        mixed = cfg.ed_precision == "mixed"
+    k = kit.kit_for(op, torch.float32 if mixed else torch.float64, device,
+                    shard_from=shard_from)
+    if v0 is None:
+        with span(start_span) if start_span else contextlib.nullcontext():
+            v0 = k.embed(_start(op.dim, k.real))
+    kw = dict(neigen=neigen, ncv=ncv, maxiter=maxiter, v0=v0,
+              tol=cfg.lanc_tolerance if tol is None else tol,
+              dtype=k.vectors, device_vectors=True)
+    if not mixed:
+        return lanczos.eigh(k.apply, k.dim_p, op=k.dev, **kw), k
+    # the bf16 operator is passed, not held, so the solver frees it after
+    # its stage
+    return lanczos.eigh_mixed(
+        k.apply, k.apply, k.dim_p, op32=k.dev,
+        op64=lambda: kit.kit_for(op, torch.float64, device,
+                                 shard_from=shard_from, reuse=k).dev,
+        op16=k.coarse() if k.coarse else None,
+        vec_rtol=cfg.ed_mixed_vec_tol, **kw), k
 
 
 def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
@@ -196,14 +203,9 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
                 + nterms * (ddp * ddp + dup * dup)) * 8
     member_bytes = (ncv_g + 1) * dim_p * 8 * planes + op_bytes
     bmax = max(2, int(budget_bytes(device, 0.25) / member_bytes))
-    if is_real:
-        stack, apply_b = split.stack_real_ops, split.apply_real_flat_batched
-        eigh, mixed = (lanczos.lanczos_eigh_real_batched,
-                       lanczos.lanczos_eigh_mixed_real_batched)
-    else:
-        stack, apply_b = split.stack_pair_ops, split.apply_pair_flat_batched
-        eigh, mixed = (lanczos.lanczos_eigh_split_batched,
-                       lanczos.lanczos_eigh_mixed_split_batched)
+    apply_b = kit.stacked_apply(is_real)
+    dt32, dt64 = (torch.float32, torch.float64) if is_real \
+        else (torch.complex64, torch.complex128)
     nsec = multichip.sector_axis_size(mesh)
     for lo in range(0, len(members), bmax):
         chunk = members[lo:lo + bmax]
@@ -239,43 +241,41 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
 
             def stacked(dtype=torch.float64, _o=ops):
                 with span("diag.batch.stack"):
-                    return stack(_o, (ddp, dup), dtype=dtype, device=device)
+                    return kit.stacked(_o, (ddp, dup), is_real, dtype,
+                                       device)
 
             with span("diag.batch.stack"):
                 rng = np.random.default_rng(8527)
                 # start vectors drawn member by member, as the JAX package
-                # draws them (a complex member takes its real then its
-                # imaginary part)
+                # draws them
                 v0 = np.stack([split.embed_real(
-                    rng.normal(size=m[2]) if is_real
-                    else rng.normal(size=m[2]) + 1j * rng.normal(size=m[2]),
-                    m[1].dim_dw, m[1].dim_up, ddp, dup) for m in batch])
+                    _start(m[2], is_real, rng), m[1].dim_dw, m[1].dim_up,
+                    ddp, dup) for m in batch])
                 v0 = v0[mine.start:mine.stop]
+            kw = dict(neigen=neigen_g, ncv=ncv_g, maxiter=maxiter_g,
+                      tol=cfg.lanc_tolerance, v0=v0)
             if cfg.ed_precision == "mixed":
                 def fb64(i, v0_row, _ops=ops):
                     # full-f64 polish at the caller's tolerance
                     with span("lanczos.f64_resolve",
                               sector=(_ops[i].nup, _ops[i].ndw)):
-                        apply1, dev_i = _kit(_ops[i], torch.float64,
-                                             device)[:2]
-                        solve1 = (lanczos.lanczos_eigh_real if is_real
-                                  else lanczos.lanczos_eigh_split)
-                        return solve1(
-                            apply1, dim_p, neigen=neigen_g, ncv=ncv_g,
-                            maxiter=maxiter_g,
-                            tol=max(cfg.lanc_tolerance,
-                                    lanczos._f64_dot_floor()),
-                            v0=v0_row, op=dev_i)
-                res_list = mixed(
-                    apply_b, apply_b, len(ops), dim_p, neigen=neigen_g,
-                    ncv=ncv_g, maxiter=maxiter_g, tol=cfg.lanc_tolerance,
-                    v0=v0, op32=stacked(torch.float32), op64=stacked,
-                    fallback64=fb64, vec_rtol=cfg.ed_mixed_vec_tol)
+                        res = _eigensolve(
+                            cfg, _ops[i], device, neigen_g, ncv_g,
+                            maxiter_g, tol=max(cfg.lanc_tolerance,
+                                               lanczos._f64_dot_floor()),
+                            mixed=False, v0=v0_row)[0]
+                        return res._replace(
+                            eigenvectors=to_host(res.eigenvectors))
+                # the f32 stack is passed, not held, so the solver frees
+                # it after its stage
+                res_list = lanczos.eigh_mixed_batched(
+                    apply_b, apply_b, len(ops), dim_p, op32=stacked(
+                        torch.float32), op64=stacked, fallback64=fb64,
+                    vec_rtol=cfg.ed_mixed_vec_tol, dtype=dt32, **kw)
             else:
-                res_list = eigh(
-                    apply_b, len(ops), dim_p, neigen=neigen_g, ncv=ncv_g,
-                    maxiter=maxiter_g, tol=cfg.lanc_tolerance, v0=v0,
-                    op=stacked())
+                res_list = lanczos.eigh_batched(
+                    apply_b, len(ops), dim_p, op=stacked(), dtype=dt64,
+                    **kw)
             gathered = multichip.gather_batched(
                 [(np.asarray(r.eigenvalues), np.asarray(r.eigenvectors),
                   r.converged) for r in res_list], mesh)
@@ -299,116 +299,46 @@ def _solve_batched(cfg: EDConfig, members, key, ncv_g, device, verbose,
 
 def _solve_large(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
                  device):
-    """One large sector on the tile kits (the JAX package's
+    """One large sector on the one-card tile kit (the JAX package's
     diag.py:561-675, single chip); the eigenvectors stay on the device.
-    The f64 operator of a mixed solve is built after its Krylov stage."""
-    rng = np.random.default_rng(8527)
-    real = split.op_is_real(op)
-    apply1 = large.apply_large_real_flat
-    kw = dict(neigen=neigen, ncv=nblock, maxiter=nitermax * nblock,
-              tol=cfg.lanc_tolerance, device_vectors=True)
-    if cfg.ed_precision == "mixed":
-        dev32, _, dim_p, embed, extract = large.build_pair_padded_large(
-            op, dtype=torch.float32, device=device)
-        with span("diag.large.start"):
-            v0 = embed(rng.normal(size=dim)) if real else \
-                embed(rng.normal(size=dim) + 1j * rng.normal(size=dim))
-        op64 = lambda: large.build_pair_padded_large(  # noqa: E731
-            op, dtype=torch.float64, device=device)[0]
-        # two-stage Krylov: bf16 tiles (real, or complex (re, im) pairs)
-        # for the cold restarts, f32 / complex64 below bf16 resolution,
-        # the f64 / complex128 refine certifies; the bf16 operator is
-        # passed, not held, so the solver frees it after its stage
-        mixed = lanczos.lanczos_eigh_mixed_real if real \
-            else lanczos.lanczos_eigh_mixed
-        res = mixed(apply1, apply1, dim_p, v0=v0, op32=dev32, op64=op64,
-                    op16=large.build_pair_padded_large(
-                        op, dtype=torch.bfloat16, reuse=dev32,
-                        device=device)[0],
-                    vec_rtol=cfg.ed_mixed_vec_tol, **kw)
-    else:
-        dev, _, dim_p, embed, extract = large.build_pair_padded_large(
-            op, dtype=torch.float64, device=device)
-        with span("diag.large.start"):
-            v0 = embed(rng.normal(size=dim)) if real else \
-                embed(rng.normal(size=dim) + 1j * rng.normal(size=dim))
-        solve = lanczos.lanczos_eigh_real if real \
-            else lanczos.lanczos_eigh_split
-        res = solve(apply1, dim_p, v0=v0, op=dev, **kw)
-    return lanczos.EighResult(res.eigenvalues, extract(res.eigenvectors),
-                              res.iterations, res.converged)
+    A mixed solve runs the bf16 coarse stage, f32 (complex64) and the
+    f64 (complex128) refine on an operator built after its Krylov
+    stage."""
+    res, k = _eigensolve(cfg, op, device, neigen, nblock,
+                         nitermax * nblock, start_span="diag.large.start")
+    return res._replace(eigenvectors=k.extract(res.eigenvectors))
 
 
 def _solve_sharded(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
-                   device, mesh):
-    """One sector on the dw-sharded block-sparse kits (the JAX package's
-    diag.py:432-500): real tiles for a real sector, complex ones for a
-    complex sector; mixed is the f32 (complex64) Krylov stage and the f64
-    (complex128) refine, without a coarse stage, as in the JAX mesh
-    branch.  Each rank holds its rows of the Krylov basis; the start
-    vector is drawn whole from the seed, as the serial solve draws it,
-    and sliced; the eigenvectors are gathered whole onto every rank at
-    the end (on the device for a large sector, on the host otherwise)."""
-    rng = np.random.default_rng(8527)
-    real = split.op_is_real(op)
-    v = rng.normal(size=dim) if real else \
-        rng.normal(size=dim) + 1j * rng.normal(size=dim)
-    apply1 = sharded_large.apply_sharded_large_real_flat
-    kw = dict(neigen=neigen, ncv=nblock, maxiter=nitermax * nblock,
-              tol=cfg.lanc_tolerance, device_vectors=True)
-    kit = sharded_large.build_sharded_large_kit
-    if cfg.ed_precision == "mixed":
-        dev32, _, dim_loc, embed, extract = kit(op, mesh, torch.float32,
-                                                device=device)
-        mixed = lanczos.lanczos_eigh_mixed_real if real \
-            else lanczos.lanczos_eigh_mixed
-        res = mixed(apply1, apply1, dim_loc, v0=embed(v), op32=dev32,
-                    op64=lambda: kit(op, mesh, torch.float64, reuse=dev32,
-                                     device=device)[0],
-                    vec_rtol=cfg.ed_mixed_vec_tol, **kw)
-    else:
-        dev, _, dim_loc, embed, extract = kit(op, mesh, torch.float64,
-                                              device=device)
-        solve = lanczos.lanczos_eigh_real if real \
-            else lanczos.lanczos_eigh_split
-        res = solve(apply1, dim_loc, v0=embed(v), op=dev, **kw)
-    vecs = extract(res.eigenvectors)
-    if not is_large(op):
-        vecs = to_host(vecs)
-    return lanczos.EighResult(res.eigenvalues, vecs, res.iterations,
-                              res.converged)
+                   device):
+    """One sector on the dw-sharded tile kit (the JAX package's
+    diag.py:432-500): each rank holds its rows of the Krylov basis; the
+    start vector is drawn whole from the seed and sliced; mixed runs
+    without a coarse stage, as the JAX mesh branch; the eigenvectors are
+    gathered whole onto every rank (on the device for a large sector, on
+    the host otherwise)."""
+    res, k = _eigensolve(cfg, op, device, neigen, nblock,
+                         nitermax * nblock,
+                         shard_from=kit.eig_shard_from(cfg))
+    vecs = k.extract(res.eigenvectors)
+    return res._replace(eigenvectors=vecs if kit.is_large(op)
+                        else to_host(vecs))
 
 
 def _solve_serial(cfg: EDConfig, op, dim, neigen, nblock, nitermax,
                   device):
-    mesh = _dw_mesh(cfg, dim)
-    if mesh is not None:
+    """One sector on its own: on a "dw" mesh from dim
+    64·lanc_dim_threshold on the sharded tile kit
+    (:func:`_solve_sharded`), a large one on the one-card tile kit
+    (:func:`_solve_large`), the others on their dense kit."""
+    if kit.sharded(dim, kit.eig_shard_from(cfg)):
         return _solve_sharded(cfg, op, dim, neigen, nblock, nitermax,
-                              device, mesh)
-    if is_large(op):
+                              device)
+    if kit.is_large(op):
         return _solve_large(cfg, op, dim, neigen, nblock, nitermax, device)
-    rng = np.random.default_rng(8527)
-    apply1, dev, is_real, dim_p, embed, extract = _kit(op, torch.float64,
-                                                       device)
-    if is_real:
-        v0 = embed(rng.normal(size=dim))
-        solve1, mixed = lanczos.lanczos_eigh_real, \
-            lanczos.lanczos_eigh_mixed_real
-    else:
-        v0 = embed(rng.normal(size=dim) + 1j * rng.normal(size=dim))
-        solve1, mixed = lanczos.lanczos_eigh_split, lanczos.lanczos_eigh_mixed
-    if cfg.ed_precision == "mixed":
-        dev32 = _kit(op, torch.float32, device)[1]
-        res = mixed(apply1, apply1, dim_p, neigen=neigen, ncv=nblock,
-                    maxiter=nitermax * nblock, tol=cfg.lanc_tolerance,
-                    v0=v0, op32=dev32, op64=dev,
-                    vec_rtol=cfg.ed_mixed_vec_tol)
-    else:
-        res = solve1(apply1, dim_p, neigen=neigen, ncv=nblock,
-                     maxiter=nitermax * nblock, tol=cfg.lanc_tolerance,
-                     v0=v0, op=dev)
-    return lanczos.EighResult(res.eigenvalues, extract(res.eigenvectors),
-                              res.iterations, res.converged)
+    res, k = _eigensolve(cfg, op, device, neigen, nblock,
+                         nitermax * nblock)
+    return res._replace(eigenvectors=to_host(k.extract(res.eigenvectors)))
 
 
 def diagonalize_impurity(state: DiagState, build: SectorBuilder,
@@ -481,7 +411,8 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
             sector_plan(isector)
         if not lanc_solve:
             continue
-        if _dw_mesh(cfg, dim) is not None or large_sector(ns, nup, ndw):
+        if kit.sharded(dim, kit.eig_shard_from(cfg)) or \
+                kit.large_sector(ns, nup, ndw):
             continue                       # solved on its own below
         op = build(nup, ndw)
         key = (split._bucket(op.dim_dw), split._bucket(op.dim_up),
@@ -520,7 +451,7 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
             with span("diag.retain"):
                 retain(eig_values, eig_basis, isector, tflag)
             continue
-        kind = ("diag.large" if large_sector(ns, nup, ndw) else
+        kind = ("diag.large" if kit.large_sector(ns, nup, ndw) else
                 "diag.serial") if lanc_solve else "diag.dense"
         with span(kind, sector=(nup, ndw), dim=dim) as sp:
             op = build(nup, ndw)

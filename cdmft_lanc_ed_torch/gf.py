@@ -13,7 +13,7 @@ sector, ED_GF_NORMAL.f90):
 * otherwise the 4-channel scheme adds the (a ± i b) injections with
   prefactor -i, and complex injections run on the complex pair kit, or,
   when the target sector's operator is real (a complex bath-basis element
-  at zero weight), on its two real planes (``split.apply_realpair_flat``);
+  at zero weight), on its two real planes (``kit.py`` chooses the kit);
 * every injection that targets the same (N_up, N_dw) sector and kind runs
   in one batched tridiagonalisation on the device (``ed_gf_precision``:
   f64/complex128 by default, f32/complex64 on the fused CUDA H·v);
@@ -35,12 +35,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import kit
 from .bath import BathBasis, DmftBath, basis_lso_of, invg0_bath_lso
 from .config import EDConfig
 from .device import budget_bytes
-from .diag import DiagState, SectorBuilder, _kit, is_large, large_sector
-from .ops import large, lanczos, split
-from .parallel import multichip, sharded_large
+from .diag import DiagState, SectorBuilder
+from .ops import lanczos
+from .parallel import sharded_large
 from .utils import fock
 from .utils.reshape import lso2nnn, nnn2lso
 from .utils.timer import count, span, to_host
@@ -315,7 +316,7 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
                     count("gf.injections", nrows)
                     count("gf.injections.chan4", nchan4)
                     rows = _Injections(base, recipe)
-                    if on_dev and large_sector(ns, jnup, jndw):
+                    if on_dev and kit.large_sector(ns, jnup, jndw):
                         # built on the card, chunk by chunk
                         is_real = not (base.is_complex() or chan4)
                         jobs.setdefault((jnup, jndw, is_real), []).append(
@@ -335,10 +336,10 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
     for (jnup, jndw, is_real), entries in jobs.items():
         meta = [m for e in entries for m in e[1]]
         with span("gf.chains", sector=(jnup, jndw), rows=len(meta),
-                  large=large_sector(ns, jnup, jndw)):
+                  large=kit.large_sector(ns, jnup, jndw)):
             op = build(jnup, jndw)
             nlanc = min(op.dim, cfg.lanc_ngfiter)
-            if is_large(op):
+            if kit.is_large(op):
                 chains = _chains_large(entries, op, is_real, nlanc, gf_dtype,
                                        device)
             else:
@@ -388,72 +389,47 @@ class _Injections:
 def _chains_dense(entries, op, is_real, nlanc, gf_dtype, device, nimp):
     """Yields (first row, (alphas, betas, norms)) of the host injection
     batch ``entries`` on the dense-factor kits, chunked so the Krylov
-    working set stays bounded."""
+    working set stays bounded.  Complex injections on a real operator
+    take its two real planes (the 4-channel scheme of a problem whose H
+    is real: the JAX package's gf.py:394-413)."""
     batch = np.concatenate([e[0] for e in entries])
     jdim = batch.shape[1]
     planes = 1 if is_real else 2
     rows_max = max(nimp, int(budget_bytes(device, 0.25)
                              / max(jdim * 8 * 3 * planes, 1)))
-    apply1, dev, real_op, _dim_p, embed, _extract = _kit(op, gf_dtype,
-                                                         device)
-    # real injections on a real operator stay one real plane; complex ones
-    # on a real operator take its two real planes (the 4-channel scheme of
-    # a problem whose H is real: the JAX package's gf.py:394-413); the
-    # rest run on the pair kit
-    if real_op and not is_real:
-        apply1 = split.apply_realpair_flat
-    tridiag = (lanczos.lanczos_tridiag_batched_real if real_op and is_real
-               else lanczos.lanczos_tridiag_batched_split)
+    k = kit.kit_for(op, gf_dtype, device, complex_vectors=not is_real)
     for lo in range(0, len(batch), rows_max):
-        yield lo, tridiag(apply1, embed(batch[lo:lo + rows_max]), nlanc,
-                          op=dev, dtype=gf_dtype)
+        yield lo, lanczos.tridiag(k.apply, k.embed(batch[lo:lo + rows_max]),
+                                  nlanc, op=k.dev, dtype=k.vectors)
 
 
 def _chains_large(entries, op, is_real, nlanc, gf_dtype, device):
-    """Yields (first row, (alphas, betas, norms)) on the large kits of a
-    target sector beyond the dense-factor limit: real injections on a
-    real H take the real tile kit, the rest complex vectors (a real H's
-    real tiles apply to both planes); the batch is folded into the SpMM
+    """Yields (first row, (alphas, betas, norms)) on the tile kits of a
+    target sector beyond the dense-factor limit (a real H's real tiles
+    take complex injections as they are), the batch folded into the SpMM
     width.  Rows are built on the device chunk by chunk, each chunk
-    holding its f64 start rows, the chain's three vectors and the
-    folded applier's temporaries within a quarter of the device memory
-    (at Ns=16 a few rows: one f32 vector of the (9,8) sector is 0.6 GB).
-    With a "dw" mesh installed the chains run on the sharded appliers:
+    holding its f64 start rows, the chain's three vectors and the folded
+    applier's temporaries within a quarter of the device memory (at
+    Ns=16 a few rows: one f32 vector of the (9,8) sector is 0.6 GB).
+    With a "dw" mesh installed the chains run on the sharded tile kit:
     each rank takes its rows of the start rows and the exchanges add
     four vector copies to the working set."""
-    real_op = split.op_is_real(op)
-    mesh = multichip.get_solver_mesh()
     planes = 1 if is_real else 2
     itemsize = torch.empty((), dtype=gf_dtype).element_size()
-    if multichip.has_axis(mesh, "dw"):
-        build = sharded_large.build_sharded_large_real if real_op \
-            else sharded_large.build_sharded_large_pair
-        dev = build(op, mesh, dtype=gf_dtype, device=device)
-        dim_loc = dev.ddp // dev.ndw * dev.dup
-        apply_b = sharded_large.apply_sharded_large_real_flat_batched
-
-        def embed(v):
-            return sharded_large.shard_rows(dev, v)
-
-        row_bytes = planes * (8 * dev.ddp * dev.dup
-                              + 12 * itemsize * dim_loc)
+    k = kit.kit_for(op, gf_dtype, device, complex_vectors=not is_real,
+                    shard_from=0, fold=True)
+    if isinstance(k.dev, sharded_large.ShardedLargeRealOp):
+        row_bytes = planes * (8 * k.dev.ddp * k.dev.dup
+                              + 12 * itemsize * k.dim_p)
     else:
-        if real_op and is_real:
-            dev, dim_p, embed, _ = large.build_real_padded_large(
-                op, dtype=gf_dtype, device=device)
-        else:
-            dev, _, dim_p, embed, _ = large.build_pair_padded_large(
-                op, dtype=gf_dtype, device=device)
-        apply_b = large.apply_large_real_flat_batched
-        row_bytes = dim_p * planes * (8 + 8 * itemsize)
-    tridiag = lanczos.lanczos_tridiag_batched_real if real_op and is_real \
-        else lanczos.lanczos_tridiag_batched_split
+        row_bytes = k.dim_p * planes * (8 + 8 * itemsize)
     rows_max = max(1, int(budget_bytes(device, 0.25) // row_bytes))
     nrows = sum(len(e[1]) for e in entries)
     for lo in range(0, nrows, rows_max):
-        v0 = embed(_take_rows(entries, lo, min(nrows, lo + rows_max),
-                              device))
-        yield lo, tridiag(apply_b, v0, nlanc, op=dev, dtype=gf_dtype)
+        v0 = k.embed(_take_rows(entries, lo, min(nrows, lo + rows_max),
+                                device))
+        yield lo, lanczos.tridiag(k.apply, v0, nlanc, op=k.dev,
+                                  dtype=k.vectors)
         del v0
 
 

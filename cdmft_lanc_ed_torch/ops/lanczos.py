@@ -16,9 +16,11 @@ Every routine is generic over the vector dtype: a real basis stays real
 (float32/float64), a complex one is complex64/complex128 (the JAX
 package's re/im plane pairs).  Projections take ``q.conj()``, the
 projected matrix is Hermitian, and a Lanczos alpha is the real part of
-<v|Hv>.  The real names (``lanczos_eigh_real``, ...) and the JAX
-package's split-plane names (``lanczos_eigh_split``, ...) are the entry
-points of the two kinds of sector.
+<v|Hv>.  Each entry point (:func:`eigh`, :func:`eigh_batched`,
+:func:`eigh_mixed`, :func:`eigh_mixed_batched`, :func:`tridiag`) reads
+the kind of sector from the dtype it is given: float32/float64 for a real
+basis, complex64/complex128 for a complex one (the JAX package's
+``*_real`` and ``*_split`` twins).
 
 Sharded vectors (``parallel/sharded_large.py``: each rank of a "dw"
 process group holds rows of the sector vector) need every inner product,
@@ -40,7 +42,7 @@ import torch.distributed as dist
 from ..device import budget_bytes
 from ..utils.timer import count, span, to_host
 from . import chain
-from .split import complex_dtype, real_dtype
+from .split import real_dtype
 
 
 class EighResult(NamedTuple):
@@ -93,10 +95,16 @@ def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
-def _complex_v0(v0, shape, seed: int) -> np.ndarray:
-    """Complex start vectors: ``v0`` as given, else re + i*im from
-    ``default_rng(seed)`` drawn as the JAX package draws them (the serial
-    solver's [2, dim] planes, the batched solver's two [B, dim] draws)."""
+def _start_rows(v0, shape, seed: int, dtype: torch.dtype) -> np.ndarray:
+    """Start rows of ``shape`` for a basis of ``dtype``: ``v0`` as given
+    (its real part for a real basis, complex128 for a complex one), else
+    drawn from ``default_rng(seed)`` as the JAX package draws them: real
+    normals, or re + i*im (the serial solver's [2, dim] planes, the
+    batched solver's two [B, dim] draws)."""
+    if not dtype.is_complex:
+        if v0 is None:
+            return np.random.default_rng(seed).normal(size=shape)
+        return np.real(np.asarray(v0))
     if v0 is not None:
         return np.asarray(v0, np.complex128)
     rng = np.random.default_rng(seed)
@@ -111,20 +119,27 @@ def _complex_v0(v0, shape, seed: int) -> np.ndarray:
 # plain Lanczos tridiagonalisation (no reorthogonalisation): GF resolvent
 # ---------------------------------------------------------------------------
 
-def _tridiag(apply_fn, v0, niter: int, op, dtype):
-    """Plain Lanczos chains of one operator from B start vectors ``v0``
-    [B, dim] (host array, or a tensor on the operator's device: the
-    large-sector injections) in ``dtype``.  Returns host (alphas
-    [B, niter], betas [B, niter-1], norms [B])."""
+def tridiag(apply_fn, v0, niter: int, op, dtype=torch.float64):
+    """Plain Lanczos chains (the GF resolvent) of one operator shared by
+    B start vectors ``v0`` [B, dim] (host array, or a tensor on the
+    operator's device: the large-sector injections) in ``dtype``: a real
+    dtype takes the real part of ``v0``, a complex one ``v0`` as
+    complex128.  Returns host (alphas [B, niter], betas [B, niter-1],
+    norms [B])."""
     device = _device_of(op)
     group = _group_of(op)
     if isinstance(v0, torch.Tensor):
+        if dtype.is_complex:
+            v0 = v0.to(torch.complex128)
+        elif v0.is_complex():
+            v0 = v0.real
         nrm = _norms(v0, 1, group)
         norms0 = to_host(nrm)
         v = (v0 / torch.where(nrm > 1e-300, nrm, 1.0)[:, None]).to(
             device=device, dtype=dtype)
     else:
-        v0 = np.asarray(v0)
+        v0 = np.asarray(v0, np.complex128) if dtype.is_complex \
+            else np.real(np.asarray(v0))
         norms0 = _host_norms(v0, group, device)
         scale = np.where(norms0 > 1e-300, norms0, 1.0)
         v = torch.as_tensor(np.ascontiguousarray(v0 / scale[:, None])).to(
@@ -154,7 +169,7 @@ def _tridiag(apply_fn, v0, niter: int, op, dtype):
 
 
 def _tridiag_fused(apply_fn, v, op, group, alphas, betas) -> None:
-    """The chain steps of :func:`_tridiag` on the card: after each H·v the
+    """The chain steps of :func:`tridiag` on the card: after each H·v the
     recurrence runs as the three launches of :class:`.chain.Chain`, which
     write ``alphas[it]`` and ``betas[it]`` in place and turn the
     applier's output ``w`` into the next vector; a sharded chain sums α
@@ -173,31 +188,6 @@ def _tridiag_fused(apply_fn, v, op, group, alphas, betas) -> None:
         p, v = v, w
     count("gf.steps", niter)
     count("gf.fused_steps", niter)
-
-
-def lanczos_tridiag_batched_real(apply_fn, v0: np.ndarray, niter: int,
-                                 op, dtype=torch.float64):
-    """Batched tridiagonalisation for a REAL symmetric operator shared by
-    B REAL start vectors ``v0`` [B, dim] (host array or device tensor).
-    Returns host (alphas [B, niter], betas [B, niter-1], norms [B])."""
-    if isinstance(v0, torch.Tensor):
-        return _tridiag(apply_fn, v0.real if v0.is_complex() else v0,
-                        niter, op, dtype)
-    return _tridiag(apply_fn, np.real(np.asarray(v0)), niter, op, dtype)
-
-
-def lanczos_tridiag_batched_split(apply_fn, v0: np.ndarray, niter: int,
-                                  op, dtype=torch.complex128):
-    """Batched tridiagonalisation for a complex Hermitian operator shared
-    by B start vectors ``v0`` [B, dim] (host or device, real or complex),
-    in complex128 or (``dtype`` complex64 / float32) on the complex
-    kernel.  Returns the host arrays of
-    :func:`lanczos_tridiag_batched_real`."""
-    if isinstance(v0, torch.Tensor):
-        return _tridiag(apply_fn, v0.to(torch.complex128), niter, op,
-                        complex_dtype(dtype))
-    return _tridiag(apply_fn, np.asarray(v0, np.complex128), niter, op,
-                    complex_dtype(dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -232,32 +222,29 @@ def _conv_ok(conv, rel, eps: float, dim: int) -> bool:
 
 class _StallGuard:
     """Stops a thick-restart sweep once the worst wanted relative residual
-    has bottomed out: armed below ``arm``, it fires after ``limit``
-    consecutive sweeps without a 1% improvement."""
+    has bottomed out: armed below 1e-3, it fires after 4 consecutive
+    sweeps without a 1% improvement."""
 
-    def __init__(self, limit: int = 4, arm: float = 1e-3):
+    def __init__(self):
         self.best = np.inf
         self.n = 0
-        self.limit = limit
-        self.arm = arm
 
     def stalled(self, cur: float) -> bool:
         if cur < 0.99 * self.best:
             self.best = cur
             self.n = 0
-        elif self.best < self.arm:
+        elif self.best < 1e-3:
             self.n += 1
-        return self.n >= self.limit
+        return self.n >= 4
 
 
 class _RefineStall:
     """Breaks the refine expansion when the worst wanted residual stops
-    improving by >= 30% per round."""
+    improving by >= 30% per round, three rounds running."""
 
-    def __init__(self, limit: int = 3):
+    def __init__(self):
         self.best = np.inf
         self.n = 0
-        self.limit = limit
 
     def stalled(self, cur: float) -> bool:
         if cur < 0.7 * self.best:
@@ -265,7 +252,7 @@ class _RefineStall:
             self.n = 0
         else:
             self.n += 1
-        return self.n >= self.limit
+        return self.n >= 3
 
 
 # ---------------------------------------------------------------------------
@@ -471,75 +458,32 @@ def _unit_rows(v0: np.ndarray, op=None) -> np.ndarray:
     return v0 / _host_norms(v0, _group_of(op), _device_of(op))[:, None]
 
 
-def lanczos_eigh_real(apply_fn, dim: int, neigen: int, ncv: int,
-                      maxiter: int = 512, tol: float = 1e-14,
-                      v0: Optional[np.ndarray] = None, seed: int = 8527,
-                      dtype=torch.float64, op=None,
-                      device_vectors: bool = False,
-                      op16=None) -> EighResult:
-    """Thick-restart Lanczos for a REAL symmetric operator with a real
-    start vector: the whole Krylov iteration stays real.  ``dtype=
-    torch.float32`` runs basis, matvec and CGS2 in f32 (the Krylov stage
-    of the mixed scheme), optionally after a bf16-tile coarse stage on
-    ``op16`` (:func:`_thick_restart`).  Eigenvectors come back as host
-    float64 arrays [neigen, dim], or as a device tensor with
-    ``device_vectors``."""
-    if v0 is None:
-        v0 = np.random.default_rng(seed).normal(size=dim)
+def eigh(apply_fn, dim: int, neigen: int, ncv: int, maxiter: int = 512,
+         tol: float = 1e-14, v0: Optional[np.ndarray] = None,
+         seed: int = 8527, dtype=torch.float64, op=None,
+         device_vectors: bool = False, op16=None) -> EighResult:
+    """Thick-restart Lanczos of one sector in ``dtype``: float64 or
+    complex128, or float32 / complex64 for the Krylov stage of the mixed
+    scheme, optionally after a bf16-tile coarse stage on ``op16``
+    (:func:`_thick_restart`).  A real basis stays real throughout.
+    Eigenvectors come back as host f64 (complex128) arrays [neigen, dim],
+    or as a device tensor with ``device_vectors``."""
     return _eigh(_one_member(apply_fn), op,
-                 _unit(np.real(np.asarray(v0)), op),
-                 neigen, ncv, maxiter, tol, dtype, device_vectors,
-                 op16=op16)[0]
+                 _unit(_start_rows(v0, (dim,), seed, dtype), op), neigen,
+                 ncv, maxiter, tol, dtype, device_vectors, op16=op16)[0]
 
 
-def lanczos_eigh_split(apply_fn, dim: int, neigen: int, ncv: int,
-                       maxiter: int = 512, tol: float = 1e-14,
-                       v0: Optional[np.ndarray] = None, seed: int = 8527,
-                       dtype=torch.complex128, op=None,
-                       device_vectors: bool = False,
-                       op16=None) -> EighResult:
-    """Thick-restart Lanczos for a complex Hermitian operator (the JAX
-    package's split-plane solver on complex tensors).  ``dtype``
-    complex64 (or float32) runs the Krylov stage of the mixed scheme on
-    the complex kernel; ``op16`` a coarse stage as in
-    :func:`lanczos_eigh_real`.  Eigenvectors come back as host complex128
-    arrays [neigen, dim], or as a device tensor with ``device_vectors``."""
-    return _eigh(_one_member(apply_fn), op,
-                 _unit(_complex_v0(v0, (dim,), seed), op), neigen, ncv,
-                 maxiter, tol, complex_dtype(dtype), device_vectors,
-                 op16=op16)[0]
-
-
-def lanczos_eigh_real_batched(apply_fn, nbatch: int, dim: int,
-                              neigen: int, ncv: int, maxiter: int = 512,
-                              tol: float = 1e-14,
-                              v0: Optional[np.ndarray] = None,
-                              seed: int = 8527, op=None,
-                              dtype=torch.float64,
-                              device_vectors: bool = False):
-    """Batched thick-restart Lanczos: ``nbatch`` independent REAL
-    symmetric operators (one batched matvec [B, dim] -> [B, dim]) solved
-    in one device stream with a shared restart schedule; the sweep stops
-    when every member has converged.  Returns ``nbatch`` EighResults."""
-    if v0 is None:
-        v0 = np.random.default_rng(seed).normal(size=(nbatch, dim))
-    return _eigh(apply_fn, op, _unit_rows(np.real(np.asarray(v0))), neigen,
-                 ncv, maxiter, tol, dtype, device_vectors)
-
-
-def lanczos_eigh_split_batched(apply_fn, nbatch: int, dim: int,
-                               neigen: int, ncv: int, maxiter: int = 512,
-                               tol: float = 1e-14,
-                               v0: Optional[np.ndarray] = None,
-                               seed: int = 8527, op=None,
-                               dtype=torch.complex128,
-                               device_vectors: bool = False):
-    """Batched thick-restart Lanczos over ``nbatch`` complex Hermitian
-    sectors: the complex twin of :func:`lanczos_eigh_real_batched`, with
-    complex eigenvector rows."""
+def eigh_batched(apply_fn, nbatch: int, dim: int, neigen: int, ncv: int,
+                 maxiter: int = 512, tol: float = 1e-14,
+                 v0: Optional[np.ndarray] = None, seed: int = 8527, op=None,
+                 dtype=torch.float64, device_vectors: bool = False):
+    """Batched thick-restart Lanczos: ``nbatch`` independent sectors of
+    one kind (one batched matvec [B, dim] -> [B, dim]) solved in one
+    device stream with a shared restart schedule; the sweep stops when
+    every member has converged.  Returns ``nbatch`` EighResults."""
     return _eigh(apply_fn, op,
-                 _unit_rows(_complex_v0(v0, (nbatch, dim), seed)), neigen,
-                 ncv, maxiter, tol, complex_dtype(dtype), device_vectors)
+                 _unit_rows(_start_rows(v0, (nbatch, dim), seed, dtype)),
+                 neigen, ncv, maxiter, tol, dtype, device_vectors)
 
 
 # ---------------------------------------------------------------------------
@@ -600,8 +544,8 @@ def _orth_expand_block(qi: torch.Tensor, block: torch.Tensor, rng,
     return qb
 
 
-def rayleigh_refine_real(matvec64, vecs: torch.Tensor, neigen: int,
-                         rtol=None, max_expand: int = 2, group=None):
+def rayleigh_refine(matvec64, vecs: torch.Tensor, neigen: int,
+                    rtol=None, max_expand: int = 2, group=None):
     """Rayleigh-Ritz on the span of the device rows ``vecs`` [k, dim],
     expanded with the orthonormalised residual block of the wanted pairs
     until their residuals meet ``rtol*max(|theta|,1)`` or ``max_expand``
@@ -681,8 +625,8 @@ def _apply_rows(apply_fn, op, x: torch.Tensor) -> torch.Tensor:
                        dim=1)
 
 
-def rayleigh_refine_real_batched(apply_fn, vecs: torch.Tensor, neigen: int,
-                                 op64, rtol=None, max_expand: int = 24):
+def rayleigh_refine_batched(apply_fn, vecs: torch.Tensor, neigen: int,
+                            op64, rtol=None, max_expand: int = 24):
     """Batched Rayleigh-Ritz refine on the device: vecs [B, k, dim]
     approximate eigenbases (real, or complex for complex sectors, where
     it is the JAX package's ``rayleigh_refine_split_batched``) are
@@ -755,22 +699,32 @@ def rayleigh_refine_real_batched(apply_fn, vecs: torch.Tensor, neigen: int,
 # f64, counted across calls (read and reset by callers that report it)
 f64_fallbacks = 0
 
-def _mixed(eigh, apply32, apply64, dim, neigen, ncv, maxiter, tol, v0,
-           seed, op32, op64, vec_rtol, lo, hi, op16=None,
-           device_vectors=False) -> EighResult:
-    """The serial mixed scheme over ``eigh`` (lanczos_eigh_real or
-    lanczos_eigh_split) at the Krylov dtype ``lo`` and the f64 dtype
-    ``hi``, with an optional bf16 coarse stage on ``op16``."""
+def eigh_mixed(apply32, apply64, dim: int, neigen: int, ncv: int,
+               maxiter: int = 512, tol: float = 1e-14,
+               v0: Optional[np.ndarray] = None, seed: int = 8527,
+               op32=None, op64=None, vec_rtol: Optional[float] = None,
+               op16=None, dtype=torch.float32,
+               device_vectors: bool = False) -> EighResult:
+    """Mixed-precision eigensolver: a thick-restart Krylov stage in
+    ``dtype`` (float32 or complex64: the fused CUDA H·v on the card, or
+    the block-sparse kernel for large sectors, after an optional bf16
+    coarse stage on ``op16``), its Ritz vectors refined in f64 (float64
+    or complex128) by Rayleigh-Ritz with residual expansion, and a
+    full-f64 thick-restart solve (warm-started) when the refine misses
+    ``vec_rtol``.  ``op64`` may be a zero-argument callable, built only
+    after the Krylov stage.  ``device_vectors`` keeps the eigenvectors on
+    the device."""
+    hi = _hi(dtype)
     f32_tol = max(tol, 2e-6)
     res32 = eigh(apply32, dim, neigen=neigen, ncv=ncv, maxiter=maxiter,
-                 tol=f32_tol, v0=v0, seed=seed, dtype=lo, op=op32,
+                 tol=f32_tol, v0=v0, seed=seed, dtype=dtype, op=op32,
                  device_vectors=True, op16=op16)
     op32 = op16 = None
     if callable(op64):
         op64 = op64()
     rtol = _mixed_vec_rtol(vec_rtol)
     with span("lanczos.refine"):
-        theta, vecs, resid = rayleigh_refine_real(
+        theta, vecs, resid = rayleigh_refine(
             lambda x: apply64(op64, x), res32.eigenvectors, neigen,
             rtol=rtol, max_expand=16, group=_group_of(op64))
     nmv = res32.iterations + len(res32.eigenvectors)
@@ -799,59 +753,29 @@ def _mixed(eigh, apply32, apply64, dim, neigen, ncv, maxiter, tol, v0,
                       nmv + res64.iterations, res64.converged)
 
 
-def lanczos_eigh_mixed_real(apply32, apply64, dim: int,
-                            neigen: int, ncv: int, maxiter: int = 512,
-                            tol: float = 1e-14,
-                            v0: Optional[np.ndarray] = None,
-                            seed: int = 8527, op32=None, op64=None,
-                            vec_rtol: Optional[float] = None, op16=None,
-                            device_vectors: bool = False) -> EighResult:
-    """Mixed-precision real eigensolver: an f32 thick-restart Krylov stage
-    (the fused CUDA H·v on the card, or the block-sparse kernel for large
-    sectors, after an optional bf16 coarse stage on ``op16``), its Ritz
-    vectors refined in f64 by Rayleigh-Ritz with residual expansion, and
-    a full-f64 thick-restart solve (warm-started) when the refine misses
-    ``vec_rtol``.  ``op64`` may be a zero-argument callable, built only
-    after the f32 stage.  ``device_vectors`` keeps the eigenvectors on the
-    device (large sectors)."""
-    return _mixed(lanczos_eigh_real, apply32, apply64, dim, neigen, ncv,
-                  maxiter, tol, v0, seed, op32, op64, vec_rtol,
-                  torch.float32, torch.float64, op16=op16,
-                  device_vectors=device_vectors)
-
-
-def lanczos_eigh_mixed(apply32, apply64, dim: int, neigen: int, ncv: int,
-                       maxiter: int = 512, tol: float = 1e-14,
-                       v0: Optional[np.ndarray] = None, seed: int = 8527,
-                       op32=None, op64=None,
-                       vec_rtol: Optional[float] = None, op16=None,
-                       device_vectors: bool = False) -> EighResult:
-    """Mixed-precision complex eigensolver: the complex64 Krylov stage on
-    the fused complex CUDA kernel (or the block-sparse kernel), the
-    complex128 refine, and the complex128 fallback of
-    :func:`lanczos_eigh_mixed_real`."""
-    return _mixed(lanczos_eigh_split, apply32, apply64, dim, neigen, ncv,
-                  maxiter, tol, v0, seed, op32, op64, vec_rtol,
-                  torch.complex64, torch.complex128, op16=op16,
-                  device_vectors=device_vectors)
-
-
-def _mixed_batched(eigh_b, apply32, apply64, nbatch, dim, neigen, ncv,
-                   maxiter, tol, v0, seed, op32, op64, fallback64,
-                   vec_rtol, lo) -> list:
-    """The batched mixed scheme over ``eigh_b`` at the Krylov dtype
-    ``lo``."""
+def eigh_mixed_batched(apply32, apply64, nbatch: int, dim: int,
+                       neigen: int, ncv: int, maxiter: int = 512,
+                       tol: float = 1e-14, v0: Optional[np.ndarray] = None,
+                       seed: int = 8527, op32=None, op64=None,
+                       fallback64: Optional[Callable] = None,
+                       vec_rtol: Optional[float] = None,
+                       dtype=torch.float32) -> list:
+    """Mixed-precision sector-parallel solve: B same-bucket sectors of one
+    kind run one batched Krylov stream in ``dtype`` (float32 or
+    complex64), refined by one batched f64 (complex128) Rayleigh-Ritz
+    pass; members whose refined residual misses ``vec_rtol`` are
+    re-solved by ``fallback64(i, v0_row)``."""
     f32_tol = max(tol, 2e-6)
-    res32 = eigh_b(apply32, nbatch, dim, neigen=neigen, ncv=ncv,
-                   maxiter=maxiter, tol=f32_tol, v0=v0, seed=seed, op=op32,
-                   dtype=lo, device_vectors=True)
+    res32 = eigh_batched(apply32, nbatch, dim, neigen=neigen, ncv=ncv,
+                         maxiter=maxiter, tol=f32_tol, v0=v0, seed=seed,
+                         op=op32, dtype=dtype, device_vectors=True)
     del op32
     if callable(op64):
         op64 = op64()
     vecs32 = torch.stack([r.eigenvectors for r in res32])   # [B, ne, dim]
     rtol = _mixed_vec_rtol(vec_rtol)
     with span("lanczos.refine"):
-        theta, vecs, resid = rayleigh_refine_real_batched(
+        theta, vecs, resid = rayleigh_refine_batched(
             apply64, vecs32, neigen, op64=op64, rtol=rtol)
     okm = np.all(resid <= rtol * np.maximum(np.abs(theta), 1.0), axis=1)
     global f64_fallbacks
@@ -869,40 +793,6 @@ def _mixed_batched(eigh_b, apply32, apply64, nbatch, dim, neigen, ncv,
             out.append(EighResult(r64.eigenvalues, r64.eigenvectors,
                                   nmv + r64.iterations, r64.converged))
     return out
-
-
-def lanczos_eigh_mixed_real_batched(apply32, apply64,
-                                    nbatch: int, dim: int, neigen: int,
-                                    ncv: int, maxiter: int = 512,
-                                    tol: float = 1e-14,
-                                    v0: Optional[np.ndarray] = None,
-                                    seed: int = 8527, op32=None,
-                                    op64=None,
-                                    fallback64: Optional[Callable] = None,
-                                    vec_rtol: Optional[float] = None):
-    """Mixed-precision sector-parallel solve: B same-bucket REAL sectors
-    run one batched f32 Krylov stream, refined by one batched f64
-    Rayleigh-Ritz pass; members whose refined residual misses
-    ``vec_rtol`` are re-solved by ``fallback64(i, v0_row)``."""
-    return _mixed_batched(lanczos_eigh_real_batched, apply32, apply64,
-                          nbatch, dim, neigen, ncv, maxiter, tol, v0, seed,
-                          op32, op64, fallback64, vec_rtol, torch.float32)
-
-
-def lanczos_eigh_mixed_split_batched(apply32, apply64, nbatch: int,
-                                     dim: int, neigen: int, ncv: int,
-                                     maxiter: int = 512, tol: float = 1e-14,
-                                     v0: Optional[np.ndarray] = None,
-                                     seed: int = 8527, op32=None,
-                                     op64=None,
-                                     fallback64: Optional[Callable] = None,
-                                     vec_rtol: Optional[float] = None):
-    """Complex-sector twin of :func:`lanczos_eigh_mixed_real_batched`:
-    the batched complex64 Krylov stream on the complex kernel, the
-    batched complex128 refine, and ``fallback64`` per missing member."""
-    return _mixed_batched(lanczos_eigh_split_batched, apply32, apply64,
-                          nbatch, dim, neigen, ncv, maxiter, tol, v0, seed,
-                          op32, op64, fallback64, vec_rtol, torch.complex64)
 
 
 # ---------------------------------------------------------------------------

@@ -24,13 +24,12 @@ type, so its bf16 tiles (the coarse Krylov stage) are a real bf16 tensor
 [T, B, B, 2] with a trailing (re, im) axis; a real one takes
 :class:`LargeRealOp`, which also applies to complex vectors (both planes
 run as one real product).  The padding contract (+1e6 decoupled diagonal
-modes) and the (dev, dim_p, embed, extract) kit interface are those of
-``ops/split.py``, so the eigensolvers and the GF stage use the kits as
-they use the dense ones.  Embedding and extraction keep device tensors on
-the device.  Around the two SpMMs of an H·v, the transposed copy of x and
-the sum of the diagonal term and both products are the two kernels of
-``csrc/large_glue.cu`` (:mod:`.glue`); the H·v frees each temporary as
-soon as it can, since at Ns=16 one f64 vector is 1.34 GB.
+modes) is that of ``ops/split.py``, so ``kit.kit_for`` gives these
+operators the kit interface of the dense ones.  Around the two SpMMs of
+an H·v, the transposed copy of x and the sum of the diagonal term and
+both products are the two kernels of ``csrc/large_glue.cu``
+(:mod:`.glue`); the H·v frees each temporary as soon as it can, since at
+Ns=16 one f64 vector is 1.34 GB.
 """
 from __future__ import annotations
 
@@ -45,8 +44,7 @@ from ..device import resolve_device
 from ..utils.timer import count, span
 from . import glue
 from .sector_ham import EllMatrix, SectorOperator
-from .split import (_PAD_DIAG, complex_dtype, embed_real, extract_real,
-                    op_is_real, real_dtype)
+from .split import _PAD_DIAG, complex_dtype, real_dtype
 
 B = 128               # tile edge
 SUP = 8               # output-band height in tiles (the TPU kernel's band)
@@ -525,29 +523,22 @@ def _apply(op: LargeRealOp, x3: torch.Tensor) -> torch.Tensor:
 
 def matvec_large_real(op: LargeRealOp, x: torch.Tensor) -> torch.Tensor:
     """H·x for x [Ddp, Dup].  ``op`` may be a :class:`LargePairOp`
-    (complex tiles) and x real or complex."""
+    (complex tiles) and x real or complex; real tiles apply to both
+    planes of a complex x."""
     return _apply(op, x[None])[0]
-
-
-matvec_large_pair = matvec_large_real
 
 
 def apply_large_real_flat(dev: LargeRealOp, x: torch.Tensor
                           ) -> torch.Tensor:
-    """Flat matvec: x [dim_p] -> H·x, or rows [m, dim_p] applied one by
-    one (the refine's blocks; the GF chains fold their rows with
+    """Flat matvec of any tile kit (real or complex tiles, real or
+    complex x): x [dim_p] -> H·x, or rows [m, dim_p] applied one by one
+    (the refine's blocks; the GF chains fold their rows with
     :func:`apply_large_real_flat_batched`)."""
     sh = tuple(dev.diag.shape)
     if x.dim() == 1:
         return matvec_large_real(dev, x.reshape(sh)).reshape(-1)
     return torch.stack([matvec_large_real(dev, r.reshape(sh)).reshape(-1)
                         for r in x])
-
-
-# The complex vector of a complex H (LargePairOp), and a real H on complex
-# vectors (planes never mix): the same generic matvec.
-apply_large_pair_flat = apply_large_real_flat
-apply_large_realpair_flat = apply_large_real_flat
 
 
 def apply_large_real_flat_batched(dev: LargeRealOp, x: torch.Tensor
@@ -557,67 +548,3 @@ def apply_large_real_flat_batched(dev: LargeRealOp, x: torch.Tensor
     return _apply(dev, x.reshape((x.shape[0],) + tuple(dev.diag.shape))
                   ).reshape(x.shape[0], -1)
 
-
-apply_large_pair_flat_batched = apply_large_real_flat_batched
-apply_large_realpair_flat_batched = apply_large_real_flat_batched
-
-
-# ---------------------------------------------------------------------------
-# kits (the interface of split.build_real_padded / build_pair_padded)
-# ---------------------------------------------------------------------------
-
-def _embed_any(v, dd, du, ddp, dup):
-    """Pad a flat [*, dd*du] array to [*, ddp*dup]; a device tensor stays
-    on its device."""
-    if isinstance(v, torch.Tensor):
-        lead = tuple(v.shape[:-1])
-        v2 = v.reshape(lead + (dd, du))
-        return torch.nn.functional.pad(v2, (0, dup - du, 0, ddp - dd)) \
-            .reshape(lead + (ddp * dup,))
-    return embed_real(v, dd, du, ddp, dup)
-
-
-def _extract_any(v, dd, du, ddp, dup):
-    if isinstance(v, torch.Tensor):
-        lead = tuple(v.shape[:-1])
-        return v.reshape(lead + (ddp, dup))[..., :dd, :du] \
-            .reshape(lead + (dd * du,))
-    return extract_real(v, dd, du, ddp, dup)
-
-
-def _kit_fns(op: SectorOperator, dev: LargeRealOp):
-    ddp, dup = dev.diag.shape
-    dd, du = op.dim_dw, op.dim_up
-
-    def embed(v):
-        return _embed_any(v, dd, du, ddp, dup)
-
-    def extract(v):
-        return _extract_any(v, dd, du, ddp, dup)
-
-    return ddp * dup, embed, extract
-
-
-def build_real_padded_large(op: SectorOperator, dtype=torch.float32,
-                            reuse=None, device=None):
-    """(dev, dim_p, embed, extract), or None when the operator is
-    complex."""
-    if not op_is_real(op):
-        return None
-    dev = to_device_large_real(op, dtype=dtype, reuse=reuse, device=device)
-    return (dev,) + _kit_fns(op, dev)
-
-
-def build_pair_padded_large(op: SectorOperator, dtype=torch.float32,
-                            reuse=None, device=None):
-    """(dev, real_flag, dim_p, embed, extract): a real operator keeps its
-    real tiles (they apply to complex vectors plane by plane), a complex
-    one gets complex tiles."""
-    real = op_is_real(op)
-    if real:
-        dev = to_device_large_real(op, dtype=dtype, reuse=reuse,
-                                   device=device)
-    else:
-        dev = to_device_large_pair(op, dtype=dtype, reuse=reuse,
-                                   device=device)
-    return (dev, real) + _kit_fns(op, dev)

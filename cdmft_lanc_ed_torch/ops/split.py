@@ -132,7 +132,7 @@ def to_device_dense_real(op: SectorOperator, pad_to: tuple = None,
 def stack_real_ops(ops, pad: tuple, dtype=torch.float64,
                    device=None) -> DenseRealOp:
     """Stacked DenseRealOp with a leading batch axis over same-bucket
-    sectors (for :func:`apply_real_flat_batched`)."""
+    sectors (for :func:`apply_real_flat`, which broadcasts over it)."""
     ddp, dup = pad
     hosts = [_dense_real_host(
         op, None if (op.dim_dw, op.dim_up) == (ddp, dup) else pad)
@@ -161,15 +161,13 @@ def matvec_dense_real(op: DenseRealOp, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_real_flat(dev: DenseRealOp, x: torch.Tensor) -> torch.Tensor:
-    """Flat one-plane matvec: x [..., dim_p] -> H·x [..., dim_p]."""
+    """Flat one-plane matvec: x [..., dim_p] -> H·x [..., dim_p].  A
+    stacked ``dev`` and x [B, dim_p] share the leading batch axis, which
+    the broadcasting products handle."""
     sh = tuple(dev.diag.shape[-2:])
     return matvec_dense_real(dev, x.reshape(x.shape[:-1] + sh)) \
         .reshape(x.shape)
 
-
-# Batched flat matvec: dev fields and x [B, dim_p] share the leading batch
-# axis, which the broadcasting products of apply_real_flat already handle.
-apply_real_flat_batched = apply_real_flat
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +235,7 @@ def to_device_dense_split(op: SectorOperator, pad_to: tuple = None,
 def stack_pair_ops(ops, pad: tuple, dtype=torch.float64,
                    device=None) -> DenseComplexOp:
     """Stacked DenseComplexOp with a leading batch axis over same-bucket
-    sectors (for :func:`apply_pair_flat_batched`)."""
+    sectors (for :func:`apply_pair_flat`, which broadcasts over it)."""
     ddp, dup = pad
     hosts = [_dense_pair_host(
         op, None if (op.dim_dw, op.dim_up) == (ddp, dup) else pad)
@@ -270,15 +268,12 @@ def matvec_dense_pair(op: DenseComplexOp, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_pair_flat(dev: DenseComplexOp, x: torch.Tensor) -> torch.Tensor:
-    """Flat complex matvec: x [..., dim_p] -> H·x [..., dim_p]."""
+    """Flat complex matvec: x [..., dim_p] -> H·x [..., dim_p] (a stacked
+    ``dev`` as in :func:`apply_real_flat`)."""
     sh = tuple(dev.diag.shape[-2:])
     return matvec_dense_pair(dev, x.reshape(x.shape[:-1] + sh)) \
         .reshape(x.shape)
 
-
-# Batched flat matvec: dev fields and x [B, dim_p] share the leading batch
-# axis, which the broadcasting products of apply_pair_flat already handle.
-apply_pair_flat_batched = apply_pair_flat
 
 
 # Applications of a real operator to complex vectors in this process (one
@@ -307,69 +302,25 @@ def apply_realpair_flat(dev: DenseRealOp, x: torch.Tensor) -> torch.Tensor:
     return torch.complex(re, im).reshape(x.shape)
 
 
-# Batched form: dev fields and x [B, dim_p] share the leading batch axis.
-apply_realpair_flat_batched = apply_realpair_flat
-
-
-def build_pair_padded(op: SectorOperator, dtype=torch.float64,
-                      device=None):
-    """(dev, real_flag, dim_p, embed, extract) for the pair path, or None
-    when the factors are too large for dense factors.  ``dev`` is a
-    :class:`DenseRealOp` for a real operator (apply it with
-    :func:`apply_realpair_flat`), else a :class:`DenseComplexOp`;
-    ``real_flag`` says which."""
-    dd, du = op.dim_dw, op.dim_up
-    if max(du, dd) > DENSE_FACTOR_MAX:
-        return None
-    ddp, dup = _bucket(dd), _bucket(du)
-    pad = (ddp, dup) if (ddp, dup) != (dd, du) else None
-    real = op_is_real(op)
-    dev = (to_device_dense_real if real else to_device_dense_split)(
-        op, pad_to=pad, dtype=dtype, device=device)
-
-    def embed(v):
-        return embed_real(v, dd, du, ddp, dup)
-
-    def extract(v):
-        return extract_real(v, dd, du, ddp, dup)
-
-    return dev, real, ddp * dup, embed, extract
-
-
-def embed_real(v: np.ndarray, dd: int, du: int, ddp: int, dup: int
-               ) -> np.ndarray:
-    """Host array [*, dd*du] -> padded [*, ddp*dup] (zeros in the
-    decoupled padding modes); a complex array stays complex."""
+def embed_real(v, dd: int, du: int, ddp: int, dup: int):
+    """Flat vectors [*, dd*du] -> padded [*, ddp*dup] (zeros in the
+    decoupled padding modes); a complex array stays complex, a host
+    array on the host and a tensor on its device."""
+    if isinstance(v, torch.Tensor):
+        lead = tuple(v.shape[:-1])
+        return torch.nn.functional.pad(
+            v.reshape(lead + (dd, du)), (0, dup - du, 0, ddp - dd)) \
+            .reshape(lead + (ddp * dup,))
     v = np.asarray(v)
     out = np.zeros(v.shape[:-1] + (ddp, dup), v.dtype)
     out[..., :dd, :du] = v.reshape(v.shape[:-1] + (dd, du))
     return out.reshape(v.shape[:-1] + (ddp * dup,))
 
 
-def extract_real(v: np.ndarray, dd: int, du: int, ddp: int, dup: int
-                 ) -> np.ndarray:
+def extract_real(v, dd: int, du: int, ddp: int, dup: int):
     """Inverse of :func:`embed_real`."""
-    v = np.asarray(v)
-    return v.reshape(v.shape[:-1] + (ddp, dup))[..., :dd, :du] \
-        .reshape(v.shape[:-1] + (dd * du,))
-
-
-def build_real_padded(op: SectorOperator, dtype=torch.float64,
-                      device=None):
-    """(dev, dim_p, embed, extract) for the real path, or None when the
-    operator is complex or too large for dense factors."""
-    dd, du = op.dim_dw, op.dim_up
-    if max(du, dd) > DENSE_FACTOR_MAX or not op_is_real(op):
-        return None
-    ddp, dup = _bucket(dd), _bucket(du)
-    dev = to_device_dense_real(
-        op, pad_to=(ddp, dup) if (ddp, dup) != (dd, du) else None,
-        dtype=dtype, device=device)
-
-    def embed(v):
-        return embed_real(v, dd, du, ddp, dup)
-
-    def extract(v):
-        return extract_real(v, dd, du, ddp, dup)
-
-    return dev, ddp * dup, embed, extract
+    if not isinstance(v, torch.Tensor):
+        v = np.asarray(v)
+    lead = tuple(v.shape[:-1])
+    return v.reshape(lead + (ddp, dup))[..., :dd, :du] \
+        .reshape(lead + (dd * du,))

@@ -18,8 +18,9 @@ Both dims are padded with +1e6 diagonal modes (``ops/large.py``'s
 contract) to multiples of the 128 tile and of the "dw" size.  The
 operator carries the "dw" process group (``group``), which
 ``ops/lanczos.py`` reads to sum every inner product over the ranks.  Flat
-vectors of the appliers are this rank's rows, [dw_loc·DimUp_p]; the kit
-of :func:`build_sharded_large_kit` maps whole vectors to them and back.
+vectors of the appliers are this rank's rows, [dw_loc·DimUp_p], of real
+or complex vectors on real or complex tiles; :func:`shard_rows` and
+:func:`gather_vector` map whole vectors to them and back.
 """
 from __future__ import annotations
 
@@ -212,14 +213,6 @@ def apply_sharded_large_real_flat_batched(op: ShardedLargeRealOp,
         .reshape(bb, -1)
 
 
-# A complex H (complex tiles) and a real H on complex vectors (its real
-# tiles take both planes as one real product): the same appliers.
-apply_sharded_large_pair_flat = apply_sharded_large_real_flat
-apply_sharded_large_pair_flat_batched = apply_sharded_large_real_flat_batched
-apply_sharded_large_realpair_flat_batched = \
-    apply_sharded_large_real_flat_batched
-
-
 def shard_rows(op: ShardedLargeRealOp, v):
     """Whole unpadded vectors [*, dd·du] (host array or tensor) -> this
     rank's padded rows [*, dw_loc·dup] (host stays host)."""
@@ -244,20 +237,6 @@ def gather_vector(op: ShardedLargeRealOp, v: torch.Tensor) -> torch.Tensor:
     full = gather_rows(v.reshape(-1, op.ddp // op.ndw, op.dup), op.group,
                        op.ndw)
     return full[:, :op.dd, :op.du].reshape(lead + (op.dd * op.du,))
-
-
-def build_sharded_large_kit(op: SectorOperator, mesh, dtype=torch.float64,
-                            axis: str = "dw", reuse=None, device=None):
-    """(dev, real_flag, dim_loc, embed, extract), the interface of
-    ``large.build_pair_padded_large`` on the mesh: a real operator keeps
-    real tiles, a complex one gets complex tiles; ``embed`` takes whole
-    vectors to this rank's rows (:func:`shard_rows`), ``extract`` gathers
-    them back (:func:`gather_vector`)."""
-    real = op_is_real(op)
-    build = build_sharded_large_real if real else build_sharded_large_pair
-    dev = build(op, mesh, axis, dtype=dtype, reuse=reuse, device=device)
-    return (dev, real, dev.ddp // dev.ndw * dev.dup,
-            lambda v: shard_rows(dev, v), lambda v: gather_vector(dev, v))
 
 
 def _flat(build, op, mesh, axis, dtype, device):

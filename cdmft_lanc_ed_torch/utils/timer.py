@@ -14,7 +14,8 @@ While a profiler is active (``torch.profiler``), each span is also kept
 as ``(start_ns, end_ns, name, parent, attrs)`` on ``time.time_ns()``,
 the clock of the profiler's own events; ``parent`` is the index of the
 enclosing span in the same list, -1 at the top.  At the end of such a
-solve its spans, totals and counters go to :func:`traced_solves`.  Spans
+solve its spans, totals and counters go to :func:`traced_solves`, which
+copies them when it is read.  Spans
 never enter ``record_function`` (the profiler would copy every range
 onto the device timeline) and never synchronise the device: untraced, a
 span costs two ``perf_counter`` reads and a dict update.
@@ -91,6 +92,13 @@ def traced_solves() -> List[dict]:
     """The newest traced solves (at most 64), oldest first: each a dict
     of ``id``, ``start_ns``, ``end_ns``, ``spans``, ``totals``, ``counts``
     and ``counters``."""
+    for i in range(len(_traced)):
+        if isinstance(_traced[i], tuple):  # kept as references at its end
+            sid, t0, t1, spans, totals, counts, counters = _traced[i]
+            _traced[i] = {
+                "id": sid, "start_ns": t0, "end_ns": t1,
+                "spans": [tuple(s) for s in spans], "totals": dict(totals),
+                "counts": dict(counts), "counters": dict(counters)}
     return list(_traced)
 
 
@@ -141,15 +149,14 @@ class Timers:
         try:
             yield self
         finally:
+            # the end stamp, then only references: a copy of the span
+            # list here would lie inside the profiler's range after the
+            # stamp (at Ns=12, thousands of tuples and a collection)
+            t1 = time.time_ns()
             _active = prev
             if traced:
-                _traced.append({
-                    "id": next(_solve_ids), "start_ns": t0,
-                    "end_ns": time.time_ns(),
-                    "spans": [tuple(s) for s in self.spans],
-                    "totals": dict(self.totals),
-                    "counts": dict(self.counts),
-                    "counters": dict(self.counters)})
+                _traced.append((next(_solve_ids), t0, t1, self.spans,
+                                self.totals, self.counts, self.counters))
 
     def write(self, path: str) -> None:
         """``name seconds entries`` per span, then ``name value`` per

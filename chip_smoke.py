@@ -1684,8 +1684,8 @@ def profile_gf_steps(dev64, v0, steps=GF_PROFILE_STEPS, warmup=2):
     from cdmft_lanc_ed_torch.ops import lanczos, large
 
     def chain(apply_fn, n):
-        return lanczos.lanczos_tridiag_batched_real(
-            apply_fn, v0, n, op=dev64, dtype=torch.float64)
+        return lanczos.tridiag(apply_fn, v0, n, op=dev64,
+                               dtype=torch.float64)
 
     chain(large.apply_large_real_flat_batched, 2)          # warm-up
     torch.cuda.synchronize()
@@ -1729,6 +1729,7 @@ def phase_large_solve(workdir, profile=False):
     (8,8) sector by the reference's own mechanism; with ``profile``, also
     a trace of a few GF chain steps."""
     import torch
+    from cdmft_lanc_ed_torch import kit
     from cdmft_lanc_ed_torch.ops import chain, fused, glue, large, lanczos
     solver, bath, hloc = flagship_solver(
         workdir, ed_precision="mixed", ed_gf_precision=NS16_GF_PRECISION,
@@ -1755,15 +1756,15 @@ def phase_large_solve(workdir, profile=False):
     st = solver.diag_state.state_list[0]
     # explicit f64 residual of the retained vector
     op = sector_op(solver, bath, hloc, *NS16_SECTOR)
-    d64, _, embed, extract = large.build_real_padded_large(
-        op, dtype=torch.float64, device=torch.device("cuda"))
+    k64 = kit.kit_for(op, torch.float64, torch.device("cuda"))
+    d64, embed = k64.dev, k64.embed
     xv = st.get_vector(solver.cfg.ns)
-    hx = extract(large.apply_large_real_flat(d64, embed(xv)))
+    hx = k64.extract(large.apply_large_real_flat(d64, embed(xv)))
     resid = float(torch.linalg.vector_norm(hx - solver.egs * xv)
                   / torch.linalg.vector_norm(xv))
     del hx
     step_s = profile_gf_steps(d64, embed(xv)[None]) if profile else None
-    del d64
+    del d64, k64
     dens = solver.dens().ravel()
     gm = solver.gimp_matsubara()
     sm = solver.sigma_matsubara()
@@ -1815,7 +1816,7 @@ def phase_large_pair_solve(op, cfg):
     card (ncv 8-20, warm or cold starts) brought its residual below 4e-4,
     so the two-state default never reports convergence here."""
     import torch
-    from cdmft_lanc_ed_torch import diag
+    from cdmft_lanc_ed_torch import diag, kit
     from cdmft_lanc_ed_torch.ops import large, lanczos
     dev = torch.device("cuda")
     cfg = dataclasses.replace(cfg, lanc_nstates_sector=1,
@@ -1828,22 +1829,16 @@ def phase_large_pair_solve(op, cfg):
     rtol = lanczos._mixed_vec_rtol(cfg.ed_mixed_vec_tol)
 
     def without_coarse():
-        # diag._solve_large's complex mixed branch with op16 left out
-        rng = np.random.default_rng(8527)
-        dev32, _, dim_p, embed, extract = large.build_pair_padded_large(
-            op, dtype=torch.float32, device=dev)
-        res = lanczos.lanczos_eigh_mixed(
-            large.apply_large_real_flat, large.apply_large_real_flat,
-            dim_p, v0=embed(rng.normal(size=dim)
-                            + 1j * rng.normal(size=dim)),
-            op32=dev32, op64=lambda: large.build_pair_padded_large(
-                op, dtype=torch.float64, device=dev)[0],
+        # diag._solve_large's mixed ladder with op16 left out
+        k32 = kit.kit_for(op, torch.float32, dev)
+        res = lanczos.eigh_mixed(
+            k32.apply, k32.apply, k32.dim_p,
+            v0=k32.embed(diag._start(dim, k32.real)), op32=k32.dev,
+            op64=lambda: kit.kit_for(op, torch.float64, dev).dev,
             vec_rtol=cfg.ed_mixed_vec_tol, neigen=neigen, ncv=nblock,
             maxiter=nitermax * nblock, tol=cfg.lanc_tolerance,
-            device_vectors=True)
-        return lanczos.EighResult(res.eigenvalues,
-                                  extract(res.eigenvectors),
-                                  res.iterations, res.converged)
+            dtype=k32.vectors, device_vectors=True)
+        return res._replace(eigenvectors=k32.extract(res.eigenvectors))
 
     runs, vecs = {}, {}
     for name in ("coarse", "no_coarse"):
@@ -1870,16 +1865,16 @@ def phase_large_pair_solve(op, cfg):
                 torch.cuda.max_memory_allocated() / 1e9}
         vecs[name] = res.eigenvectors[0].clone()
         del res
-    d128, _, _, embed, extract = large.build_pair_padded_large(
-        op, dtype=torch.float64, device=dev)
+    k128 = kit.kit_for(op, torch.float64, dev)
     for name, run in runs.items():
         x = vecs.pop(name)
-        hx = extract(large.apply_large_real_flat(d128, embed(x)))
+        hx = k128.extract(large.apply_large_real_flat(k128.dev,
+                                                      k128.embed(x)))
         run["residual"] = float(torch.linalg.vector_norm(hx - run["e0"] * x)
                                 / torch.linalg.vector_norm(x)
                                 / max(abs(run["e0"]), 1.0))
         del x, hx
-    del d128
+    del k128
     co, nc = runs["coarse"], runs["no_coarse"]
     blk = sum(co["launches_by_type"].values())
 

@@ -259,10 +259,10 @@ def test_blk_spmm_matches_plain(card, kind, m, n, empty_band):
 
 
 @pytest.mark.cuda
-def test_large_matvec_on_card(card):
+def test_large_matvec_on_card(card, monkeypatch):
     """The large kit's f32 matvec launches the kernel twice (one per
     side) and agrees with its f64 matvec."""
-    from cdmft_lanc_ed_torch import EDConfig
+    from cdmft_lanc_ed_torch import EDConfig, kit
     from cdmft_lanc_ed_torch.models.hubbard import plaquette_replica_bath
     from cdmft_lanc_ed_torch.ops import sector_ham
     hloc, basis, lam, v = plaquette_replica_bath(1)
@@ -270,11 +270,11 @@ def test_large_matvec_on_card(card):
     hrec = lam[:, 0, None, None, None, None, None, None] * basis
     dhyb = v.T.reshape(4, 1, 1, -1)
     op = sector_ham.build_sector_operator(cfg, hloc, hrec, dhyb, 4, 4)
-    d32, dim_p, embed, _ = large.build_real_padded_large(
-        op, dtype=torch.float32, device=card)
-    d64 = large.build_real_padded_large(op, dtype=torch.float64,
-                                        device=card)[0]
-    x = embed(torch.as_tensor(np.random.default_rng(23).normal(
+    monkeypatch.setattr(split, "DENSE_FACTOR_MAX", 0)   # the tile kit
+    k32 = kit.kit_for(op, torch.float32, card)
+    d32, d64 = k32.dev, kit.kit_for(op, torch.float64, card).dev
+    assert k32.apply is large.apply_large_real_flat
+    x = k32.embed(torch.as_tensor(np.random.default_rng(23).normal(
         size=op.dim), device=card))
     n0 = large.launches
     y32 = large.apply_large_real_flat(d32, x.float())
@@ -355,11 +355,11 @@ def test_pair_kernel_at_the_edge_cluster_batch(card):
                         + 1j * rng.normal(size=(9, 1024 * 1024)),
                         device=card)
     n0, s0 = fused.pair_launches, fused.pair_shapes[(9, 1024, 1024)]
-    y32 = split.apply_pair_flat_batched(st32, x.to(torch.complex64))
+    y32 = split.apply_pair_flat(st32, x.to(torch.complex64))
     torch.cuda.synchronize()
     assert fused.pair_launches == n0 + 1
     assert fused.pair_shapes[(9, 1024, 1024)] == s0 + 1
-    y64 = split.apply_pair_flat_batched(st64, x)
+    y64 = split.apply_pair_flat(st64, x)
     assert float((y32.to(torch.complex128) - y64).abs().max()) \
         <= 1e-3 * float(y64.abs().max())
 
@@ -407,14 +407,16 @@ def test_blk_spmm_bf16c_matches_plain(card, m, n, empty_band):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("complex_h", [False, True])
-def test_sharded_large_one_rank_nccl(card, tmp_path, complex_h):
+def test_sharded_large_one_rank_nccl(card, tmp_path, monkeypatch,
+                                    complex_h):
     """parallel.sharded_large on a (1, 1) mesh over NCCL (real
     all-to-alls over one rank): the one-vector and batched appliers
     launch the kernel and agree with the large kit's f64 appliers."""
     import torch.distributed as dist
-    from cdmft_lanc_ed_torch import EDConfig
+    from cdmft_lanc_ed_torch import EDConfig, kit
     from cdmft_lanc_ed_torch.ops import sector_ham
-    from cdmft_lanc_ed_torch.parallel import distributed, sharded_large
+    from cdmft_lanc_ed_torch.parallel import (distributed, multichip,
+                                              sharded_large)
     nn = (2, 2, 1, 1, 2, 2)
     hloc = np.zeros(nn, np.complex128)
     for o in range(2):
@@ -432,12 +434,13 @@ def test_sharded_large_one_rank_nccl(card, tmp_path, complex_h):
         world_size=1)
     try:
         assert dist.get_backend() == "nccl"
-        dev, real, dim_loc, embed, extract = \
-            sharded_large.build_sharded_large_kit(op, mesh, torch.float64,
-                                                  device=card)
-        ref, _, dim_p, rembed, rextract = large.build_pair_padded_large(
-            op, dtype=torch.float64, device=card)
-        assert real == (not complex_h) and dim_loc == dim_p
+        monkeypatch.setattr(split, "DENSE_FACTOR_MAX", 0)
+        ref = kit.kit_for(op, torch.float64, card, fold=True)
+        multichip.set_solver_mesh(mesh)
+        sk = kit.kit_for(op, torch.float64, card, shard_from=0)
+        dev, embed, extract = sk.dev, sk.embed, sk.extract
+        assert isinstance(dev, sharded_large.ShardedLargeRealOp)
+        assert sk.real == (not complex_h) and sk.dim_p == ref.dim_p
         rng = np.random.default_rng(33)
         v = rng.normal(size=(3, op.dim))
         if complex_h:
@@ -450,10 +453,10 @@ def test_sharded_large_one_rank_nccl(card, tmp_path, complex_h):
             dev, embed(vt)))
         torch.cuda.synchronize()
         assert large.launches == n0 + 4
-        want = rextract(large.apply_large_real_flat_batched(ref,
-                                                            rembed(vt)))
+        want = ref.extract(ref.apply(ref.dev, ref.embed(vt)))
         scale = float(want.abs().max())
         assert float((y1 - want[0]).abs().max()) <= 1e-12 * scale
         assert float((yb - want).abs().max()) <= 1e-12 * scale
     finally:
+        multichip.set_solver_mesh(None)
         dist.destroy_process_group()

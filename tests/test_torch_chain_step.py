@@ -1,4 +1,4 @@
-"""The GF chain step of ``ops/lanczos._tridiag``: on the CPU the plain
+"""The GF chain step of ``ops/lanczos.tridiag``: on the CPU the plain
 torch recurrence, held bitwise to its expressions as they stood before
 the card took the kernel set of ``csrc/lanczos_chain.cu``; on the card
 (``cuda``-marked, skipped without CUDA) the kernel set against the torch
@@ -81,15 +81,11 @@ def _dense(h, device, dtype):
 
 def _tridiag(h, v0, device, dtype, niter=NITER):
     apply_fn, op = _dense(h, device, dtype)
-    if dtype.is_complex:
-        return lanczos.lanczos_tridiag_batched_split(apply_fn, v0, niter,
-                                                     op, dtype=dtype)
-    return lanczos.lanczos_tridiag_batched_real(apply_fn, v0, niter, op,
-                                                dtype=dtype)
+    return lanczos.tridiag(apply_fn, v0, niter, op, dtype=dtype)
 
 
 def _tridiag_before(apply_fn, v0, niter, op, dtype):
-    """The chain as ``_tridiag`` ran it on every device before the kernel
+    """The chain as ``tridiag`` ran it on every device before the kernel
     set (unsharded, host start rows): the plain path must stay this."""
     device = op.diag.device
     v0 = np.asarray(v0)
@@ -206,8 +202,7 @@ def test_kernel_chain_matches_torch_path(card, dtype, n, nrows):
                 diag=torch.zeros(1, device=device))
     if not dtype.is_complex:
         v0 = v0.real
-    tri = lanczos.lanczos_tridiag_batched_split if dtype.is_complex \
-        else lanczos.lanczos_tridiag_batched_real
+    tri = lanczos.tridiag
     rec = timer.Timers()
     n0 = chain.launches
     apply_fn, op = make(card, dtype, dtype)
@@ -308,8 +303,7 @@ def _sharded_child(rank, world, store_path, out_path, v0, h):
                                    group=dist.group.WORLD)
         rec = timer.Timers()
         with rec.active():
-            out = lanczos.lanczos_tridiag_batched_real(
-                apply_fn, v0[:, lo:hi], NITER, op)
+            out = lanczos.tridiag(apply_fn, v0[:, lo:hi], NITER, op)
         torch.save((out, rec.counters), f"{out_path}.{rank}")
     finally:
         dist.destroy_process_group()

@@ -23,6 +23,7 @@ import torch
 import bhz_case
 import cdmft_lanc_ed_tpu as jpkg
 import cdmft_lanc_ed_torch as tpkg
+from cdmft_lanc_ed_torch import kit
 from cdmft_lanc_ed_tpu.ops import lanczos as jl
 from cdmft_lanc_ed_tpu.ops import pallas_fused
 from cdmft_lanc_ed_tpu.ops import split as jsplit
@@ -253,21 +254,22 @@ def test_stacked_pair_ops_equal(ops):
 def test_apply_pair_flat_f64(ops):
     jop, top = ops[(2, 3)]
     jkit = jsplit.build_pair_padded(jop)
-    tkit = tsplit.build_pair_padded(top, device="cpu")
-    assert jkit[1] is False and tkit[1] is False and jkit[2] == tkit[2]
+    tkit = kit.kit_for(top, torch.float64, "cpu", complex_vectors=True)
+    assert jkit[1] is False and tkit.real is False and jkit[2] == tkit.dim_p
     rng = np.random.default_rng(0)
     v = rng.normal(size=top.dim) + 1j * rng.normal(size=top.dim)
     ve = jkit[3](v)
     wr, wi = jsplit.apply_pair_flat(jkit[0], jnp.asarray(ve.real),
                                     jnp.asarray(ve.imag))
     ref = np.asarray(wr) + 1j * np.asarray(wi)
-    te = tkit[3](v)
+    te = tkit.embed(v)
     assert te.dtype == np.complex128 and np.array_equal(te, ve)
-    out = tsplit.apply_pair_flat(tkit[0], torch.from_numpy(te)).numpy()
+    assert tkit.apply is tsplit.apply_pair_flat
+    out = tsplit.apply_pair_flat(tkit.dev, torch.from_numpy(te)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-12,
                                atol=1e-12 * np.abs(ref).max())
     oracle = top.matvec_np(v)
-    back = tkit[4](out)
+    back = tkit.extract(out)
     assert back.dtype == np.complex128
     np.testing.assert_allclose(back, oracle, rtol=1e-12,
                                atol=1e-12 * np.abs(ref).max())
@@ -287,7 +289,7 @@ def test_apply_pair_flat_batched_f64(ops):
     wr, wi = jsplit.apply_pair_flat_batched(js, jnp.asarray(x.real),
                                             jnp.asarray(x.imag))
     ref = np.asarray(wr) + 1j * np.asarray(wi)
-    out = tsplit.apply_pair_flat_batched(ts, torch.from_numpy(x)).numpy()
+    out = tsplit.apply_pair_flat(ts, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-12,
                                atol=1e-12 * np.abs(ref).max())
     # padding stays decoupled: zero in, zero out
@@ -306,7 +308,7 @@ NEIGEN, NCV, MAXITER, TOL_L = 2, 20, 2000, 1e-18
 def sector(ops):
     jop, top = ops[(3, 3)]
     jkit = jsplit.build_pair_padded(jop)
-    tkit = tsplit.build_pair_padded(top, device="cpu")
+    tkit = kit.kit_for(top, torch.float64, "cpu", complex_vectors=True)
     rng = np.random.default_rng(8527)
     v0 = jkit[3](rng.normal(size=top.dim) + 1j * rng.normal(size=top.dim))
     return jop, top, jkit, tkit, v0
@@ -317,8 +319,8 @@ def test_lanczos_eigh_split_f64(sector):
     kw = dict(neigen=NEIGEN, ncv=NCV, maxiter=MAXITER, tol=TOL_L, v0=v0)
     jr = jl.lanczos_eigh_split(jsplit.apply_pair_flat, jkit[2], op=jkit[0],
                                **kw)
-    tr = tl.lanczos_eigh_split(tsplit.apply_pair_flat, tkit[2], op=tkit[0],
-                               **kw)
+    tr = tl.eigh(tkit.apply, tkit.dim_p, op=tkit.dev,
+                 dtype=torch.complex128, **kw)
     np.testing.assert_allclose(tr.eigenvalues, np.asarray(jr.eigenvalues),
                                rtol=0, atol=1e-10)
     assert tr.converged and tr.eigenvectors.dtype == np.complex128
@@ -332,14 +334,12 @@ def test_lanczos_eigh_split_f64(sector):
 def test_lanczos_eigh_mixed(sector):
     jop, top, jkit, tkit, v0 = sector
     j32 = jsplit.build_pair_padded(jop, dtype=jnp.float32)[0]
-    t32 = tsplit.build_pair_padded(top, dtype=torch.float32,
-                                   device="cpu")[0]
+    t32 = kit.kit_for(top, torch.float32, "cpu").dev
     kw = dict(neigen=NEIGEN, ncv=NCV, maxiter=MAXITER, tol=TOL_L, v0=v0)
     jr = jl.lanczos_eigh_mixed(jsplit.apply_pair_flat, jsplit.apply_pair_flat,
                                jkit[2], op32=j32, op64=jkit[0], **kw)
-    tr = tl.lanczos_eigh_mixed(tsplit.apply_pair_flat,
-                               tsplit.apply_pair_flat, tkit[2], op32=t32,
-                               op64=tkit[0], **kw)
+    tr = tl.eigh_mixed(tkit.apply, tkit.apply, tkit.dim_p, op32=t32,
+                       op64=tkit.dev, dtype=torch.complex64, **kw)
     np.testing.assert_allclose(tr.eigenvalues, np.asarray(jr.eigenvalues),
                                rtol=0, atol=1e-8)
     w0 = np.linalg.eigvalsh(top.to_dense())[:NEIGEN]
@@ -365,20 +365,22 @@ def test_batched_split_solvers(ops, mixed):
             2, dim_p, op32=jsplit.stack_pair_ops(jops, pad,
                                                  dtype=jnp.float32),
             op64=jsplit.stack_pair_ops(jops, pad), **kw)
-        tres = tl.lanczos_eigh_mixed_split_batched(
-            tsplit.apply_pair_flat_batched, tsplit.apply_pair_flat_batched,
+        tres = tl.eigh_mixed_batched(
+            tsplit.apply_pair_flat, tsplit.apply_pair_flat,
             2, dim_p, op32=tsplit.stack_pair_ops(tops, pad,
                                                  dtype=torch.float32,
                                                  device="cpu"),
-            op64=tsplit.stack_pair_ops(tops, pad, device="cpu"), **kw)
+            op64=tsplit.stack_pair_ops(tops, pad, device="cpu"),
+            dtype=torch.complex64, **kw)
         atol = 1e-8
     else:
         jres = jl.lanczos_eigh_split_batched(
             jsplit.apply_pair_flat_batched, 2, dim_p,
             op=jsplit.stack_pair_ops(jops, pad), **kw)
-        tres = tl.lanczos_eigh_split_batched(
-            tsplit.apply_pair_flat_batched, 2, dim_p,
-            op=tsplit.stack_pair_ops(tops, pad, device="cpu"), **kw)
+        tres = tl.eigh_batched(
+            tsplit.apply_pair_flat, 2, dim_p,
+            op=tsplit.stack_pair_ops(tops, pad, device="cpu"),
+            dtype=torch.complex128, **kw)
         atol = 1e-10
     for jr, tr, top in zip(jres, tres, tops):
         np.testing.assert_allclose(tr.eigenvalues,
@@ -396,8 +398,8 @@ def test_lanczos_tridiag_batched_split(sector):
                    for _ in range(3)])
     ja, jb, jn = jl.lanczos_tridiag_batched_split(
         jsplit.apply_pair_flat, v0, 32, op=jkit[0])
-    ta, tb, tn = tl.lanczos_tridiag_batched_split(
-        tsplit.apply_pair_flat, v0, 32, op=tkit[0])
+    ta, tb, tn = tl.tridiag(tkit.apply, v0, 32, op=tkit.dev,
+                            dtype=torch.complex128)
     np.testing.assert_allclose(ta, ja, rtol=0, atol=1e-10)
     np.testing.assert_allclose(tb, jb, rtol=0, atol=1e-10)
     np.testing.assert_allclose(tn, jn, rtol=1e-14)

@@ -50,6 +50,7 @@ def _two_site_op(cfg, soc):
 
 
 def test_no_device_means_the_card(monkeypatch, tmp_path):
+    from cdmft_lanc_ed_torch import kit
     from cdmft_lanc_ed_torch.ops import split
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tpkg.EDConfig(nlat=1, nbath=0, work_dir=str(tmp_path))
@@ -61,10 +62,10 @@ def test_no_device_means_the_card(monkeypatch, tmp_path):
     real_op, pair_op = _two_site_op(cfg2, 0.0), _two_site_op(cfg2, 0.3)
     assert split.op_is_real(real_op) and not split.op_is_real(pair_op)
     with pytest.raises(RuntimeError, match="CUDA"):
-        split.build_real_padded(real_op)
+        kit.kit_for(real_op, torch.float64, None)
     with pytest.raises(RuntimeError, match="CUDA"):
-        split.build_pair_padded(pair_op)
-    assert split.build_real_padded(real_op, device="cpu")[0] \
-        .diag.device.type == "cpu"
-    assert split.build_pair_padded(pair_op, device="cpu")[0] \
-        .hdw.device.type == "cpu"
+        kit.kit_for(pair_op, torch.float64, None)
+    assert kit.kit_for(real_op, torch.float64, "cpu") \
+        .dev.diag.device.type == "cpu"
+    assert kit.kit_for(pair_op, torch.float64, "cpu") \
+        .dev.hdw.device.type == "cpu"

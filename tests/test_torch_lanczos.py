@@ -17,7 +17,7 @@ import torch
 import __graft_entry__ as ge
 from cdmft_lanc_ed_tpu.ops import lanczos as jl
 from cdmft_lanc_ed_tpu.ops import split as js
-from cdmft_lanc_ed_torch import EDConfig
+from cdmft_lanc_ed_torch import EDConfig, kit
 from cdmft_lanc_ed_torch.ops import lanczos as tl
 from cdmft_lanc_ed_torch.ops import sector_ham as tsh
 from cdmft_lanc_ed_torch.ops import split as ts
@@ -57,7 +57,7 @@ def _ops(nup, ndw):
 def sector():
     jop, top = _ops(4, 4)
     jkit = js.build_real_padded(jop)
-    tkit = ts.build_real_padded(top, device="cpu")
+    tkit = kit.kit_for(top, torch.float64, "cpu")
     v0 = jkit[2](np.random.default_rng(8527).normal(size=top.dim))
     return jop, top, jkit, tkit, v0
 
@@ -68,9 +68,8 @@ def f64_pair(sector):
     jr = jl.lanczos_eigh_real(js.apply_real_flat, jkit[1], neigen=NEIGEN,
                               ncv=NCV, maxiter=MAXITER, tol=TOL, v0=v0,
                               op=jkit[0])
-    tr = tl.lanczos_eigh_real(ts.apply_real_flat, tkit[1], neigen=NEIGEN,
-                              ncv=NCV, maxiter=MAXITER, tol=TOL, v0=v0,
-                              op=tkit[0])
+    tr = tl.eigh(tkit.apply, tkit.dim_p, neigen=NEIGEN, ncv=NCV,
+                 maxiter=MAXITER, tol=TOL, v0=v0, op=tkit.dev)
     return jr, tr
 
 
@@ -90,16 +89,15 @@ def test_lanczos_eigh_real_f64(sector, f64_pair):
 def test_lanczos_eigh_mixed_real(sector, f64_pair):
     jop, top, jkit, tkit, v0 = sector
     j32 = js.build_real_padded(jop, dtype=jnp.float32)[0]
-    t32 = ts.build_real_padded(top, dtype=torch.float32, device="cpu")[0]
+    t32 = kit.kit_for(top, torch.float32, "cpu").dev
     jr = jl.lanczos_eigh_mixed_real(js.apply_real_flat, js.apply_real_flat,
                                     jkit[1], neigen=NEIGEN, ncv=NCV,
                                     maxiter=MAXITER, tol=TOL, v0=v0,
                                     op32=j32, op64=jkit[0])
     tl.f64_fallbacks = 0
-    tr = tl.lanczos_eigh_mixed_real(ts.apply_real_flat, ts.apply_real_flat,
-                                    tkit[1], neigen=NEIGEN, ncv=NCV,
-                                    maxiter=MAXITER, tol=TOL, v0=v0,
-                                    op32=t32, op64=tkit[0])
+    tr = tl.eigh_mixed(tkit.apply, tkit.apply, tkit.dim_p, neigen=NEIGEN,
+                       ncv=NCV, maxiter=MAXITER, tol=TOL, v0=v0, op32=t32,
+                       op64=tkit.dev, dtype=torch.float32)
     # no check of tr.converged: here the refine misses 1e-10 on both
     # sides and the f64 fallback, started from the refined ground vector,
     # can stall on the second pair in either package (its verdict turns
@@ -128,18 +126,19 @@ def test_batched_solvers(mixed):
             js.apply_real_flat_batched, js.apply_real_flat_batched, 2, dim_p,
             op32=js.stack_real_ops(jops, pad, dtype=jnp.float32),
             op64=js.stack_real_ops(jops, pad), **kw)
-        tres = tl.lanczos_eigh_mixed_real_batched(
-            ts.apply_real_flat_batched, ts.apply_real_flat_batched, 2, dim_p,
+        tres = tl.eigh_mixed_batched(
+            ts.apply_real_flat, ts.apply_real_flat, 2, dim_p,
             op32=ts.stack_real_ops(tops, pad, dtype=torch.float32,
                                    device="cpu"),
-            op64=ts.stack_real_ops(tops, pad, device="cpu"), **kw)
+            op64=ts.stack_real_ops(tops, pad, device="cpu"),
+            dtype=torch.float32, **kw)
         atol = 1e-8
     else:
         jres = jl.lanczos_eigh_real_batched(
             js.apply_real_flat_batched, 2, dim_p,
             op=js.stack_real_ops(jops, pad), **kw)
-        tres = tl.lanczos_eigh_real_batched(
-            ts.apply_real_flat_batched, 2, dim_p,
+        tres = tl.eigh_batched(
+            ts.apply_real_flat, 2, dim_p,
             op=ts.stack_real_ops(tops, pad, device="cpu"), **kw)
         atol = 1e-10
     for jr, tr, top in zip(jres, tres, tops):
@@ -156,8 +155,7 @@ def test_lanczos_tridiag_batched_real(sector):
     v0 = np.stack([jkit[2](rng.normal(size=top.dim)) for _ in range(3)])
     ja, jb, jn = jl.lanczos_tridiag_batched_real(js.apply_real_flat, v0, 32,
                                                  op=jkit[0])
-    ta, tb, tn = tl.lanczos_tridiag_batched_real(ts.apply_real_flat, v0, 32,
-                                                 op=tkit[0])
+    ta, tb, tn = tl.tridiag(tkit.apply, v0, 32, op=tkit.dev)
     np.testing.assert_allclose(ta, ja, rtol=0, atol=1e-10)
     np.testing.assert_allclose(tb, jb, rtol=0, atol=1e-10)
     np.testing.assert_allclose(tn, jn, rtol=1e-14)

@@ -32,6 +32,7 @@ import torch
 import __graft_entry__ as ge
 import cdmft_lanc_ed_tpu as jpkg
 import cdmft_lanc_ed_torch as tpkg
+from cdmft_lanc_ed_torch import kit
 from cdmft_lanc_ed_tpu.ops import lanczos as jlanczos
 from cdmft_lanc_ed_tpu.ops import large as jlarge
 from cdmft_lanc_ed_tpu.ops import sector_ham as jsh
@@ -144,11 +145,12 @@ def test_plain_spmm_matches_jax(dtype):
     assert np.abs(y - yj).max() <= tol * scale
 
 
-def _port_kit(top, dtype=torch.float64, pair=False):
-    if pair:
-        return tlarge.build_pair_padded_large(top, dtype=dtype,
-                                              device="cpu")
-    return tlarge.build_real_padded_large(top, dtype=dtype, device="cpu")
+def _port_kit(top, dtype=torch.float64):
+    """The port's tile kit of ``top``: the kit chooser with the
+    dense-factor limit below its factors."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsplit, "DENSE_FACTOR_MAX", 0)
+        return kit.kit_for(top, dtype, "cpu")
 
 
 @pytest.mark.parametrize("jh", [0.0, 0.3])
@@ -157,14 +159,16 @@ def test_real_matvecs_match_jax(jh):
     assert bool(top.nd_terms) == bool(jh)
     jdev, dim_p, jembed, _ = jlarge.build_real_padded_large(
         jop, dtype=jnp.float64)
-    tdev, tdim, tembed, textract = _port_kit(top)
-    assert tdim == dim_p
+    tk = _port_kit(top)
+    tdev, tembed, textract = tk.dev, tk.embed, tk.extract
+    assert tk.real and tk.dim_p == dim_p
     assert np.array_equal(tdev.diag.numpy(), np.asarray(jdev.diag))
     rng = np.random.default_rng(3)
     v = rng.normal(size=(3, top.dim))
     xj = jnp.asarray(jembed(v))
     xt = tembed(torch.as_tensor(v))
     wj = np.asarray(jlarge.apply_large_real_flat(jdev, xj[0]))
+    assert tk.apply is tlarge.apply_large_real_flat
     wt = tlarge.apply_large_real_flat(tdev, xt[0]).numpy()
     np.testing.assert_allclose(wt, wj, rtol=1e-12, atol=1e-12)
     # extraction keeps tensors tensors; the oracle on the unpadded vector
@@ -178,7 +182,7 @@ def test_real_matvecs_match_jax(jh):
     # a real H on complex vectors: both planes through the real tiles
     vi = rng.normal(size=(3, top.dim))
     xc = tembed(torch.as_tensor(v + 1j * vi))
-    wc = tlarge.apply_large_realpair_flat_batched(tdev, xc).numpy()
+    wc = tlarge.apply_large_real_flat_batched(tdev, xc).numpy()
     wr, wi = jlarge.apply_large_realpair_flat_batched(
         jdev, xj, jnp.asarray(jembed(vi)))
     np.testing.assert_allclose(wc, np.asarray(wr) + 1j * np.asarray(wi),
@@ -190,22 +194,23 @@ def test_pair_kit_matches_jax():
     assert not tsplit.op_is_real(top)
     jdev, jreal, dim_p, jembed, _ = jlarge.build_pair_padded_large(
         jop, dtype=jnp.float64)
-    tdev, treal, tdim, tembed, textract = _port_kit(top, pair=True)
-    assert not jreal and not treal and tdim == dim_p
+    tk = _port_kit(top)
+    tdev, tembed, textract = tk.dev, tk.embed, tk.extract
+    assert not jreal and not tk.real and tk.dim_p == dim_p
     assert tdev.dw_tiles.dtype == torch.complex128
     rng = np.random.default_rng(4)
     vr, vi = rng.normal(size=(2, 3, top.dim))
     xr, xi = jnp.asarray(jembed(vr)), jnp.asarray(jembed(vi))
     xt = tembed(torch.as_tensor(vr + 1j * vi))
     sr, si = jlarge.apply_large_pair_flat(jdev, xr[0], xi[0])
-    w = tlarge.apply_large_pair_flat(tdev, xt[0]).numpy()
+    w = tlarge.apply_large_real_flat(tdev, xt[0]).numpy()
     np.testing.assert_allclose(w, np.asarray(sr) + 1j * np.asarray(si),
                                rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(
         textract(torch.as_tensor(w)).numpy(),
         top.matvec_np(vr[0] + 1j * vi[0]), rtol=1e-11, atol=1e-11)
     br, bi = jlarge.apply_large_pair_flat_batched(jdev, xr, xi)
-    wb = tlarge.apply_large_pair_flat_batched(tdev, xt).numpy()
+    wb = tlarge.apply_large_real_flat_batched(tdev, xt).numpy()
     np.testing.assert_allclose(wb, np.asarray(br) + 1j * np.asarray(bi),
                                rtol=1e-12, atol=1e-12)
 
@@ -226,16 +231,12 @@ def test_coarse_stage_matches_jax():
     jres = jlanczos.lanczos_eigh_mixed_real(
         jlarge.apply_large_real_flat, jlarge.apply_large_real_flat, dim_p,
         v0=jembed(v0), op32=j32, op64=j64, op16=j16, **kw)
-    t32, tdim, tembed, _ = tlarge.build_real_padded_large(
-        top, dtype=torch.float32, device="cpu")
-    t16 = tlarge.build_real_padded_large(top, dtype=torch.bfloat16,
-                                         reuse=t32, device="cpu")[0]
-    assert t16.dw_tiles.dtype == torch.bfloat16 and t16.diag is t32.diag
-    tres = tlanczos.lanczos_eigh_mixed_real(
-        tlarge.apply_large_real_flat, tlarge.apply_large_real_flat, tdim,
-        v0=tembed(v0), op32=t32, op16=t16,
-        op64=lambda: tlarge.build_real_padded_large(
-            top, dtype=torch.float64, device="cpu")[0], **kw)
+    tk = _port_kit(top, torch.float32)
+    t16 = tk.coarse()
+    assert t16.dw_tiles.dtype == torch.bfloat16 and t16.diag is tk.dev.diag
+    tres = tlanczos.eigh_mixed(
+        tk.apply, tk.apply, tk.dim_p, v0=tk.embed(v0), op32=tk.dev,
+        op16=t16, op64=lambda: _port_kit(top).dev, **kw)
     np.testing.assert_allclose(tres.eigenvalues, jres.eigenvalues,
                                rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(tres.eigenvalues, w_ref, rtol=1e-10,

@@ -28,6 +28,7 @@ import torch
 import bhz_case
 import cdmft_lanc_ed_tpu as jpkg
 import cdmft_lanc_ed_torch as tpkg
+from cdmft_lanc_ed_torch import kit
 from cdmft_lanc_ed_tpu.models import bhz as jbhz
 from cdmft_lanc_ed_tpu.ops import large as jlarge
 from cdmft_lanc_ed_tpu.ops import split as jsplit
@@ -110,7 +111,7 @@ def test_bf16c_tiles_and_plain_spmm():
                         f.nb)
 
 
-def test_bf16c_matvec_within_the_bf16_bound_as_jax():
+def test_bf16c_matvec_within_the_bf16_bound_as_jax(monkeypatch):
     """The port's bf16 complex matvec and the JAX package's bf16 pair kit
     both lie within the bf16 bound of the f64 product (they round
     differently, so they are not held to each other)."""
@@ -118,11 +119,10 @@ def test_bf16c_matvec_within_the_bf16_bound_as_jax():
     j32 = jlarge.build_pair_padded_large(jop, dtype=jnp.float32)[0]
     jdev, jreal, dim_p, jembed, jextract = jlarge.build_pair_padded_large(
         jop, dtype=jnp.bfloat16, reuse=j32)
-    t32 = tlarge.build_pair_padded_large(top, dtype=torch.float32,
-                                         device="cpu")[0]
-    tdev, treal, tdim, tembed, textract = tlarge.build_pair_padded_large(
-        top, dtype=torch.bfloat16, reuse=t32, device="cpu")
-    assert not jreal and not treal and tdim == dim_p
+    monkeypatch.setattr(tsplit, "DENSE_FACTOR_MAX", 15)
+    tk = kit.kit_for(top, torch.float32, "cpu")     # the f32 tile kit
+    tdev, tembed, textract = tk.coarse(), tk.embed, tk.extract
+    assert not jreal and not tk.real and tk.dim_p == dim_p
     rng = np.random.default_rng(12)
     v = rng.normal(size=top.dim) + 1j * rng.normal(size=top.dim)
     exact = top.matvec_np(v)
@@ -131,7 +131,7 @@ def test_bf16c_matvec_within_the_bf16_bound_as_jax():
         jdev, jnp.asarray(jembed(v.real), jnp.float32),
         jnp.asarray(jembed(v.imag), jnp.float32))
     wj = jextract(np.asarray(wr) + 1j * np.asarray(wi))
-    wt = textract(tlarge.apply_large_pair_flat(
+    wt = textract(tlarge.apply_large_real_flat(
         tdev, tembed(torch.as_tensor(v).to(torch.complex64)))).numpy()
     assert np.all(np.abs(wj - exact) <= bound)
     assert np.all(np.abs(wt - exact) <= bound)
@@ -139,7 +139,7 @@ def test_bf16c_matvec_within_the_bf16_bound_as_jax():
     assert np.abs(wt - exact).max() > 1e-5 * np.abs(exact).max()
     # the batched applier folds the rows into the same SpMM
     vb = torch.as_tensor(np.stack([v, v.conj()])).to(torch.complex64)
-    wb = textract(tlarge.apply_large_pair_flat_batched(tdev, tembed(vb)))
+    wb = textract(tlarge.apply_large_real_flat_batched(tdev, tembed(vb)))
     assert np.all(np.abs(wb[0].numpy() - exact) <= bound)
 
 
@@ -183,7 +183,7 @@ def test_complex_mixed_large_solve_runs_the_coarse_stage(tmp_path,
     monkeypatch.setattr(jsplit, "DENSE_FACTOR_MAX", 15)
     monkeypatch.setattr(tsplit, "DENSE_FACTOR_MAX", 15)
     passed, applied = [], []
-    mixed = tlanczos.lanczos_eigh_mixed
+    mixed = tlanczos.eigh_mixed
     apply1 = tlarge.apply_large_real_flat
 
     def spy_mixed(*a, **kw):
@@ -195,7 +195,7 @@ def test_complex_mixed_large_solve_runs_the_coarse_stage(tmp_path,
                        else str(op.dw_tiles.dtype))
         return apply1(op, x)
 
-    monkeypatch.setattr(tlanczos, "lanczos_eigh_mixed", spy_mixed)
+    monkeypatch.setattr(tlanczos, "eigh_mixed", spy_mixed)
     monkeypatch.setattr(tlarge, "apply_large_real_flat", spy_apply)
     j, jbath = _bhz_mixed_solve(jpkg, tmp_path / "jax")
     t = _bhz_mixed_solve(tpkg, tmp_path / "port", jbath)

@@ -80,9 +80,8 @@ def _kit(case: str, dtype, device):
     """The large device operator of ``case`` with ``dtype`` tiles."""
     op = _sector(case)
     if case == "complex":
-        return large.build_pair_padded_large(op, dtype=dtype,
-                                             device=device)[0]
-    return large.build_real_padded_large(op, dtype=dtype, device=device)[0]
+        return large.to_device_large_pair(op, dtype=dtype, device=device)
+    return large.to_device_large_real(op, dtype=dtype, device=device)
 
 
 def _torch_glue_matvec(op, x):

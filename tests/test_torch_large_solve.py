@@ -201,13 +201,13 @@ def test_single_precision_gf_takes_the_f32_tile_kit(tmp_path, monkeypatch):
     in another order) to 1e-5."""
     from cdmft_lanc_ed_torch.ops import large as tlarge
     built = []
-    build_real = tlarge.build_real_padded_large
+    build_real = tlarge.to_device_large_real
 
     def spy(op, dtype=torch.float32, **kw):
         built.append(dtype)
         return build_real(op, dtype=dtype, **kw)
 
-    monkeypatch.setattr(tlarge, "build_real_padded_large", spy)
+    monkeypatch.setattr(tlarge, "to_device_large_real", spy)
     out = {}
     for limit in (8192, 5):
         monkeypatch.setattr(tsplit, "DENSE_FACTOR_MAX", limit)

@@ -26,8 +26,10 @@ import cdmft_lanc_ed_torch as tpkg
 import torch_dist_case as case
 from cdmft_lanc_ed_tpu.parallel import sharded_large as jsl
 from cdmft_lanc_ed_tpu.parallel import sharded_spmv as jss
+from cdmft_lanc_ed_torch import kit
 from cdmft_lanc_ed_torch.ops import lanczos as tlanczos
 from cdmft_lanc_ed_torch.ops import large as tlarge
+from cdmft_lanc_ed_torch.ops import split as tsplit
 
 WORLDS = [2, 4]
 
@@ -114,7 +116,7 @@ def test_sharded_dense_jxjp_matches_jax(world):
            1e-12)
 
 
-def test_sharded_eigensolvers_and_chains(world):
+def test_sharded_eigensolvers_and_chains(world, monkeypatch):
     """Mixed complex and f64 real thick-restart solves over the sharded
     vectors reach the dense eigenvalues; a GF chain over them is the
     single-process chain; every rank ends with the same numbers."""
@@ -128,12 +130,13 @@ def test_sharded_eigensolvers_and_chains(world):
     np.testing.assert_allclose(got["real_eig"],
                                np.linalg.eigvalsh(op.to_dense())[:1],
                                rtol=1e-9, atol=1e-9)
-    dev, _, embed, _ = tlarge.build_real_padded_large(
-        op, dtype=torch.float64, device="cpu")
-    ref = tlanczos.lanczos_tridiag_batched_real(
-        tlarge.apply_large_real_flat_batched,
-        embed(torch.as_tensor(case.vector(op.dim, False, 16, rows=2))), 12,
-        op=dev)
+    monkeypatch.setattr(tsplit, "DENSE_FACTOR_MAX", 0)   # the tile kit
+    k = kit.kit_for(op, torch.float64, "cpu", fold=True)
+    assert k.apply is tlarge.apply_large_real_flat_batched
+    ref = tlanczos.tridiag(
+        k.apply, k.embed(torch.as_tensor(case.vector(op.dim, False, 16,
+                                                     rows=2))), 12,
+        op=k.dev)
     for a, b in zip(got["tridiag"], ref):
         np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10)
     for other in every[1:]:

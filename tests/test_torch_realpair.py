@@ -4,7 +4,7 @@ and the GF route that takes it, against the JAX package.
 * The applier: a random real symmetric sector operator (with Jx/Jp terms)
   on seeded complex vectors, against the JAX package's
   ``apply_realpair_flat`` to 1e-13 (f64); the batched form against the
-  unbatched one; ``build_pair_padded`` gives a real operator for it.
+  unbatched one; the kit chooser gives a real operator for it.
 * The 4-channel GF on a real problem (tests/test_real_fastpath.py:150-178:
   a 2-site cluster with two replica baths, Ns=6, the 2-channel scheme
   disabled): G(iw) and Sigma(iw) against the JAX package's (its split kit,
@@ -29,6 +29,7 @@ import cdmft_lanc_ed_tpu as jpkg
 import cdmft_lanc_ed_torch as tpkg
 import cdmft_lanc_ed_tpu.gf as jgf
 import cdmft_lanc_ed_torch.gf as tgf
+from cdmft_lanc_ed_torch import kit
 from cdmft_lanc_ed_tpu.ops import sector_ham as jsh
 from cdmft_lanc_ed_tpu.ops import split as jsplit
 from cdmft_lanc_ed_torch.ops import sector_ham as tsh
@@ -65,14 +66,16 @@ def _real_op(pkg, sh):
 def test_apply_realpair_flat_matches_jax():
     jop, top = _real_op(jpkg, jsh), _real_op(tpkg, tsh)
     jkit = jsplit.build_pair_padded(jop)
-    tkit = tsplit.build_pair_padded(top, device="cpu")
-    assert jkit[1] is True and tkit[1] is True and jkit[2] == tkit[2]
-    assert isinstance(tkit[0], tsplit.DenseRealOp)
+    tkit = kit.kit_for(top, torch.float64, "cpu", complex_vectors=True)
+    assert jkit[1] is True and tkit.real is True and jkit[2] == tkit.dim_p
+    assert isinstance(tkit.dev, tsplit.DenseRealOp)
+    assert tkit.apply is tsplit.apply_realpair_flat
+    assert tkit.vectors == torch.complex128
     rng = np.random.default_rng(5)
     v = rng.normal(size=(3, top.dim)) + 1j * rng.normal(size=(3, top.dim))
-    ve = tkit[3](v)
+    ve = tkit.embed(v)
     n0 = tsplit.realpair_applications
-    out = tsplit.apply_realpair_flat(tkit[0], torch.from_numpy(ve)).numpy()
+    out = tsplit.apply_realpair_flat(tkit.dev, torch.from_numpy(ve)).numpy()
     assert tsplit.realpair_applications == n0 + 1
     for b in range(3):
         wr, wi = jsplit.apply_realpair_flat(jkit[0], ve[b].real, ve[b].imag)
@@ -80,13 +83,12 @@ def test_apply_realpair_flat_matches_jax():
         np.testing.assert_allclose(out[b], ref, rtol=0,
                                    atol=1e-13 * np.abs(ref).max())
     oracle = np.stack([top.matvec_np(row) for row in v])
-    np.testing.assert_allclose(tkit[4](out), oracle, rtol=0,
+    np.testing.assert_allclose(tkit.extract(out), oracle, rtol=0,
                                atol=1e-12 * np.abs(out).max())
     # batched: one operator per member (here the same one stacked)
-    pad = tuple(tkit[0].diag.shape)
+    pad = tuple(tkit.dev.diag.shape)
     stacked = tsplit.stack_real_ops([top, top, top], pad, device="cpu")
-    outb = tsplit.apply_realpair_flat_batched(stacked,
-                                              torch.from_numpy(ve)).numpy()
+    outb = tsplit.apply_realpair_flat(stacked, torch.from_numpy(ve)).numpy()
     np.testing.assert_allclose(outb, out, rtol=0,
                                atol=1e-14 * np.abs(out).max())
 

@@ -11,7 +11,7 @@ import torch
 
 import __graft_entry__ as ge
 from cdmft_lanc_ed_tpu.ops import split as jsplit
-from cdmft_lanc_ed_torch import EDConfig
+from cdmft_lanc_ed_torch import EDConfig, kit
 from cdmft_lanc_ed_torch.ops import sector_ham as tsh
 from cdmft_lanc_ed_torch.ops import split as tsplit
 
@@ -99,20 +99,20 @@ def test_stacked_arrays_equal(ops):
 def test_apply_real_flat_f64(ops):
     jop, top = ops[(3, 4)]
     jkit = jsplit.build_real_padded(jop)
-    tkit = tsplit.build_real_padded(top, device="cpu")
-    assert jkit[1] == tkit[1]
+    tkit = kit.kit_for(top, torch.float64, "cpu")
+    assert jkit[1] == tkit.dim_p and tkit.apply is tsplit.apply_real_flat
     rng = np.random.default_rng(0)
     v = rng.normal(size=top.dim)
     ref = np.asarray(jsplit.apply_real_flat(jkit[0],
                                             jnp.asarray(jkit[2](v))))
-    out = tsplit.apply_real_flat(tkit[0], torch.from_numpy(tkit[2](v)))
+    out = tsplit.apply_real_flat(tkit.dev, torch.from_numpy(tkit.embed(v)))
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-12,
                                atol=1e-12 * np.abs(ref).max())
     # padding stays decoupled: zero in, zero out
-    out2 = out.numpy().reshape(tkit[0].diag.shape)
+    out2 = out.numpy().reshape(tkit.dev.diag.shape)
     assert not out2[top.dim_dw:].any() and not out2[:, top.dim_up:].any()
     oracle = top.matvec_np(v.astype(complex)).real
-    np.testing.assert_allclose(tkit[3](out.numpy()), oracle, rtol=1e-12,
+    np.testing.assert_allclose(tkit.extract(out.numpy()), oracle, rtol=1e-12,
                                atol=1e-12 * np.abs(ref).max())
 
 
@@ -127,6 +127,6 @@ def test_apply_real_flat_batched_f64(ops):
                                     ops[k][1].dim_dw, ops[k][1].dim_up,
                                     *pad) for k in keys])
     ref = np.asarray(jsplit.apply_real_flat_batched(js, jnp.asarray(x)))
-    out = tsplit.apply_real_flat_batched(ts, torch.from_numpy(x)).numpy()
+    out = tsplit.apply_real_flat(ts, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-12,
                                atol=1e-12 * np.abs(ref).max())

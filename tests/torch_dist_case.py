@@ -175,7 +175,7 @@ def matvecs(mesh, rank):
         xb = sl.shard_rows(dev, torch.as_tensor(vector(op.dim, cplx, 20,
                                                         rows=3)))
         yb = sl.apply_sharded_large_real_flat_batched(dev, xb)
-        ys = torch.stack([sl.apply_sharded_large_pair_flat(dev, r)
+        ys = torch.stack([sl.apply_sharded_large_real_flat(dev, r)
                           for r in xb])
         out[name] = sl.gather_vector(dev, yb).numpy()
         out[name + "_single"] = sl.gather_vector(dev, ys).numpy()
@@ -201,10 +201,10 @@ def matvecs(mesh, rank):
                                       reuse=d32, device="cpu")
     v0 = sl.shard_rows(d64, vector(op.dim, True, 14))
     dim_loc = v0.shape[0]
-    res = lanczos.lanczos_eigh_mixed(
-        sl.apply_sharded_large_pair_flat, sl.apply_sharded_large_pair_flat,
+    res = lanczos.eigh_mixed(
+        sl.apply_sharded_large_real_flat, sl.apply_sharded_large_real_flat,
         dim_loc, neigen=2, ncv=30, maxiter=600, tol=1e-10, op32=d32,
-        op64=d64, v0=v0, device_vectors=True)
+        op64=d64, v0=v0, dtype=torch.complex64, device_vectors=True)
     out["mixed_pair_eigs"] = res.eigenvalues
     vecs = sl.gather_vector(d64, res.eigenvectors).numpy()
     out["mixed_pair_resid"] = float(np.linalg.norm(
@@ -212,14 +212,14 @@ def matvecs(mesh, rank):
     op = hubbard_op(tpkg, 3, 3, nbath=2)
     d64 = sl.build_sharded_large_real(op, mesh, dtype=torch.float64,
                                       device="cpu")
-    res = lanczos.lanczos_eigh_real(
+    res = lanczos.eigh(
         sl.apply_sharded_large_real_flat, d64.diag.numel(), neigen=1,
         ncv=30, maxiter=600, tol=1e-12,
         v0=sl.shard_rows(d64, vector(op.dim, False, 15)), op=d64)
     out["real_eig"] = res.eigenvalues
     rows = sl.shard_rows(d64, torch.as_tensor(vector(op.dim, False, 16,
                                                      rows=2)))
-    out["tridiag"] = lanczos.lanczos_tridiag_batched_real(
+    out["tridiag"] = lanczos.tridiag(
         sl.apply_sharded_large_real_flat_batched, rows, 12, op=d64)
     out["exchange_bytes"] = ss.exchange_bytes
     return out

@@ -9,8 +9,9 @@ Both packages run one ``ed_precision="mixed"`` solve at the initial bath
 (the JAX package on its split-plane kit, CDMFT_SPLIT_BACKEND=1).  For
 each batched f64 refine it prints the padded sector dimension, the worst
 wanted residual of every expansion round and the rounds taken; then the
-f64 re-solves (calls of ``lanczos_eigh_split`` at f64) by padded
-dimension.  One JSON line per package.
+f64 re-solves (calls of the serial eigensolver, the port's ``eigh`` and
+the JAX package's ``lanczos_eigh_split``, at f64) by padded dimension.
+One JSON line per package.
 """
 import json
 import os
@@ -32,9 +33,9 @@ from cdmft_lanc_ed_torch.ops import lanczos as tl  # noqa: E402
 from cdmft_lanc_ed_tpu.ops import lanczos as jl  # noqa: E402
 
 
-def instrument(mod, refine_name, record):
-    """Wrap ``mod``'s stall guard, batched complex refine and complex
-    eigensolver so that one solve fills ``record``."""
+def instrument(mod, refine_name, eigh_name, record):
+    """Wrap ``mod``'s stall guard, batched complex refine and serial
+    complex eigensolver so that one solve fills ``record``."""
     rounds = []
     stalled = mod._RefineStall.stalled
 
@@ -51,7 +52,7 @@ def instrument(mod, refine_name, record):
                                   "worst_per_round": list(rounds)})
         return out
 
-    eigh = mod.lanczos_eigh_split
+    eigh = getattr(mod, eigh_name)
 
     def spy_eigh(apply_fn, dim, *a, **k):
         out = eigh(apply_fn, dim, *a, **k)
@@ -62,17 +63,18 @@ def instrument(mod, refine_name, record):
 
     mod._RefineStall.stalled = spy_stalled
     setattr(mod, refine_name, spy_refine)
-    mod.lanczos_eigh_split = spy_eigh
+    setattr(mod, eigh_name, spy_eigh)
 
 
 def main():
     _, basis, lams = bhz_case.model(tbhz)
     _, hloc = bhz_case.lattice(tbhz)
-    for pkg, mod, refine, kw in (
-            (tpkg, tl, "rayleigh_refine_real_batched", {"device": "cpu"}),
-            (jpkg, jl, "rayleigh_refine_split_batched", {})):
+    for pkg, mod, refine, eigh, kw in (
+            (tpkg, tl, "rayleigh_refine_batched", "eigh", {"device": "cpu"}),
+            (jpkg, jl, "rayleigh_refine_split_batched", "lanczos_eigh_split",
+             {})):
         record = {"refines": [], "f64_resolves": []}
-        instrument(mod, refine, record)
+        instrument(mod, refine, eigh, record)
         with tempfile.TemporaryDirectory() as wd:
             cfg = pkg.EDConfig(**bhz_case.KW, ed_precision="mixed",
                                work_dir=wd)
