@@ -44,7 +44,7 @@ from . import kit
 from .config import EDConfig
 from .device import budget_bytes
 from .eigenspace import StateList
-from .ops import lanczos, sector_ham, split
+from .ops import lanczos, sector_ham, split, start
 from .parallel import multichip
 from .utils import fock
 from .utils.timer import span, to_host
@@ -143,10 +143,30 @@ SectorBuilder = Callable[[int, int], sector_ham.SectorOperator]
 def _start(dim: int, real: bool, rng=None) -> np.ndarray:
     """The seeded start vector of a sector of ``dim``: ``rng`` (default
     ``default_rng(8527)``) draws its real part, then for a complex
-    sector its imaginary part, as the JAX package draws them."""
+    sector its imaginary part, as the JAX package draws them (from
+    ``start.PARALLEL_FROM`` samples in parallel, bit for bit)."""
     rng = np.random.default_rng(8527) if rng is None else rng
-    return rng.normal(size=dim) if real else \
-        rng.normal(size=dim) + 1j * rng.normal(size=dim)
+    return start.normals(rng, dim) if real else \
+        start.normals(rng, dim) + 1j * start.normals(rng, dim)
+
+
+def _start_rows(op, k: kit.Kit, start_span=None):
+    """The seeded start vector of ``op`` on its kit's rows, drawn inside
+    ``start_span`` when given.  From ``start.PARALLEL_FROM`` samples on a
+    one-card kit: unit :class:`lanczos.DeviceRows`, drawn into the padded
+    rows and normalised on the device when the basis takes them."""
+    sp = span(start_span) if start_span else contextlib.nullcontext()
+    if k.layout is None or op.dim < start.PARALLEL_FROM:
+        with sp:
+            return k.embed(_start(op.dim, k.real))
+
+    def make():
+        with sp:
+            dev = lanczos._device_of(k.dev)
+            return start.unit_rows(start.padded(
+                np.random.default_rng(8527), k.real, *k.layout, dev),
+                k.real, dev)
+    return lanczos.DeviceRows((1, k.dim_p), make)
 
 
 def _eigensolve(cfg: EDConfig, op, device, neigen, ncv, maxiter, *,
@@ -158,16 +178,15 @@ def _eigensolve(cfg: EDConfig, op, device, neigen, ncv, maxiter, *,
     Krylov stage, the f64 (complex128) refine on an operator built after
     it and the f64 re-solve (``lanczos.eigh_mixed``); else one f64
     solve, to ``tol`` (default ``lanc_tolerance``).  ``v0`` (the kit's
-    rows) defaults to the seeded start vector, drawn inside
-    ``start_span`` when given.  Returns (the result on the kit's rows,
-    its eigenvectors on the device; the kit)."""
+    rows) defaults to the seeded start vector (:func:`_start_rows`).
+    Returns (the result on the kit's rows, its eigenvectors on the
+    device; the kit)."""
     if mixed is None:
         mixed = cfg.ed_precision == "mixed"
     k = kit.kit_for(op, torch.float32 if mixed else torch.float64, device,
                     shard_from=shard_from)
     if v0 is None:
-        with span(start_span) if start_span else contextlib.nullcontext():
-            v0 = k.embed(_start(op.dim, k.real))
+        v0 = _start_rows(op, k, start_span)
     kw = dict(neigen=neigen, ncv=ncv, maxiter=maxiter, v0=v0,
               tol=cfg.lanc_tolerance if tol is None else tol,
               dtype=k.vectors, device_vectors=True)

@@ -42,7 +42,9 @@ class Kit:
     those rows and back; ``vectors`` is the rows' dtype and ``real`` says
     whether the operator is.  ``coarse()``, on the one-card tile kit
     only, builds the operator's bf16 tiles on its structure (the coarse
-    Krylov stage)."""
+    Krylov stage).  ``layout`` (dd, du, ddp, dup), on the one-card kits:
+    ``embed`` puts entry k of a whole vector at row k // du, column
+    k % du of the rows as [ddp, dup]."""
     dev: object
     apply: Callable
     real: bool
@@ -51,6 +53,7 @@ class Kit:
     embed: Callable
     extract: Callable
     coarse: Optional[Callable] = None
+    layout: Optional[tuple] = None
 
 
 def is_large(op: SectorOperator) -> bool:
@@ -126,7 +129,8 @@ def kit_for(op: SectorOperator, dtype, device, *,
             else split.apply_real_flat
     return Kit(dev, apply, real, vectors, ddp * dup,
                lambda v: split.embed_real(v, dd, du, ddp, dup),
-               lambda v: split.extract_real(v, dd, du, ddp, dup), coarse)
+               lambda v: split.extract_real(v, dd, du, ddp, dup), coarse,
+               (dd, du, ddp, dup))
 
 
 def stacked(ops, bucket: tuple, real: bool, dtype, device):

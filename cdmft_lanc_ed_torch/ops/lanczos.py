@@ -52,6 +52,14 @@ class EighResult(NamedTuple):
     converged: bool
 
 
+class DeviceRows(NamedTuple):
+    """Unit start rows of ``shape`` [B, dim] that ``make()`` builds on the
+    device when the basis takes them, so that nothing holds them after
+    its first column is written."""
+    shape: tuple
+    make: Callable
+
+
 def _device_of(op) -> torch.device:
     return op.diag.device
 
@@ -294,6 +302,14 @@ _DTYPE_NAMES = {torch.float32: "f32", torch.float64: "f64",
 _RITZ_CHUNK_BYTES = 1 << 30
 
 
+def _first_column(v0, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The basis's first column [B, dim] from unit start rows ``v0``: host
+    rows, or :class:`DeviceRows` made here."""
+    rows = v0.make() if isinstance(v0, DeviceRows) else torch.as_tensor(v0)
+    return rows.to(device=device, dtype=dtype)
+
+
 def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
                    maxiter: int, tol: float, dtype: torch.dtype,
                    device: torch.device, op16=None):
@@ -308,7 +324,7 @@ def _thick_restart(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
     coarse stage is never accepted."""
     nb, dim = v0.shape
     basis = torch.zeros(nb, ncv + 1, dim, dtype=dtype, device=device)
-    basis[:, 0] = torch.as_tensor(v0).to(device=device, dtype=dtype)
+    basis[:, 0] = _first_column(v0, device, dtype)
     t_proj = np.zeros((nb, ncv, ncv),
                       np.complex128 if dtype.is_complex else np.float64)
     k = 0
@@ -405,7 +421,8 @@ def _eigh(apply_fn, op, v0: np.ndarray, neigen: int, ncv: int,
           maxiter: int, tol: float, dtype, device_vectors: bool,
           op16=None):
     """Thick-restart solve of B = len(v0) operators (one batched matvec
-    [B, dim] -> [B, dim]) from normalised host start rows ``v0`` [B, dim].
+    [B, dim] -> [B, dim]) from normalised host start rows ``v0`` [B, dim]
+    (or :class:`DeviceRows`).
     Returns B EighResults.  ``dim`` counts the rows of every rank."""
     group = _group_of(op)
     b, dim = v0.shape
@@ -466,11 +483,13 @@ def eigh(apply_fn, dim: int, neigen: int, ncv: int, maxiter: int = 512,
     complex128, or float32 / complex64 for the Krylov stage of the mixed
     scheme, optionally after a bf16-tile coarse stage on ``op16``
     (:func:`_thick_restart`).  A real basis stays real throughout.
+    ``v0``: a start vector, or unit :class:`DeviceRows` [1, dim].
     Eigenvectors come back as host f64 (complex128) arrays [neigen, dim],
     or as a device tensor with ``device_vectors``."""
-    return _eigh(_one_member(apply_fn), op,
-                 _unit(_start_rows(v0, (dim,), seed, dtype), op), neigen,
-                 ncv, maxiter, tol, dtype, device_vectors, op16=op16)[0]
+    rows = v0 if isinstance(v0, DeviceRows) \
+        else _unit(_start_rows(v0, (dim,), seed, dtype), op)
+    return _eigh(_one_member(apply_fn), op, rows, neigen, ncv, maxiter, tol,
+                 dtype, device_vectors, op16=op16)[0]
 
 
 def eigh_batched(apply_fn, nbatch: int, dim: int, neigen: int, ncv: int,
